@@ -1,0 +1,7 @@
+"""TRAIL core: probe, Bayesian refinement, bin geometry and the scheduler.
+
+  predictor   — probe MLP on recycled layer embeddings (Section 3.1)
+  smoothing   — Bayesian per-iteration refinement (Section 3.1, Appendix A)
+  bins        — length-bin geometry shared by predictor/smoothing
+  scheduler   — SPRPT with limited preemption (Section 3.3)
+"""
