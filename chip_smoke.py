@@ -9,39 +9,64 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    with no CUDA device, fail;
 2. build every CUDA kernel from the sources in this checkout (one ``nvcc``
    per source, all at once) and print what ptxas reports;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of ``granite-3-8b`` and ``trail-llama`` in float32 and
-   bfloat16, with scrambled block tables, null pages, inactive
-   (q_pos = -1) rows and a logit softcap. Tolerances, per element:
-   float32 |kernel - plain| <= 1e-5; bfloat16 at most 2e-2 and at most
-   one bf16 rounding of the output, 2**-7 * |plain| + 1e-4 (both versions
-   compute in float32 and round once);
-4. time each kernel at the serving path's shapes with CUDA events, beside
-   its plain version, the least time the card could take (its bound) and
-   one PyTorch library call computing the same attention as a yardstick;
-5. hold the model on the card against the same weights on the CPU
-   (``granite-smoke`` in float32: greedy tokens equal, logits within 1e-4);
+3. hold each kernel against its plain PyTorch version on the card, float32
+   and bfloat16, with inactive (q_pos = -1) rows and a logit softcap:
+   the paged kernels at the shapes of ``granite-3-8b``, ``trail-llama``
+   and ``gemma2-9b`` (head_dim 256) with scrambled block tables and null
+   pages; ``decode_attention`` at the shapes of ``gemma2-9b`` (a 4608-slot
+   cache, and a wrapped 4096-slot ring with window 4096), ``gemma3-1b``
+   (one KV head, window 512) and ``granite-3-8b``; ``probe_update`` at
+   ``gemma2-9b`` width, 16 rows and 1, bfloat16 and float32 taps, with a
+   row whose posterior sums to 0 (the prior fallback). Tolerances, per
+   element: float32 |kernel - plain| <= 1e-5; bfloat16 at most 2e-2 and
+   at most one bf16 rounding of the output, 2**-7 * |plain| + 1e-4 (both
+   versions compute in float32 and round once); probe outputs
+   (probabilities, always float32) 1e-5, as float32 sums over 3584 and
+   512 terms are taken in another order;
+4. time each kernel at its path's shapes with CUDA events, beside its
+   plain version, the least time the card could take (its bound) and one
+   PyTorch library call computing the same function as a yardstick
+   (``scaled_dot_product_attention`` with the same mask; none exists for
+   ``probe_update``, whose w1 fits in L2, so it is timed with L2 flushed
+   before every call);
+5. hold the model on the card against the same weights on the CPU in
+   float32: ``granite-smoke`` (paged) and ``gemma2-smoke`` (contiguous and
+   paged), two prefill chunks (24 and 20 tokens, so gemma2-smoke's rings
+   of 16 wrap) and a megastep: greedy tokens equal, logits within 1e-4;
 6. serve ``granite-3-8b`` at full width (40 layers, random weights from a
    seed) through ``run_policy(mode="real", kv_layout="paged",
-   policy="trail", probe_interval=4)`` with the probe predictor, with
-   every kernel launch count set to 0 just before and read just after;
-   check that every request finished, both kernels ran, and nothing is
-   NaN; then step a short second run and check ``lengths == _kv_written``
-   after every engine step;
-7. profile one decode megastep and one prefill chunk of the served model
-   (device busy share and the kernels that take the time).
+   policy="trail", probe_interval=4)`` with the probe predictor; step a
+   short second run checking ``lengths == _kv_written``; profile one
+   decode megastep and one prefill chunk;
+7. serve ``gemma2-9b`` at full width and depth (42 layers, random weights
+   from seed 0) through ``run_policy(mode="real", kv_layout="contig",
+   ...)``: 12 requests, two with prompts past the 4096-token window so the
+   local layers' rings wrap; check that every request finished, that
+   ``decode_attention`` ran 42 times per decode step and that nothing is
+   NaN; then step a short paged run on the same model (global layers
+   through the paged kernels, local layers through ``decode_attention``)
+   checking ``lengths == _kv_written`` after every step;
+8. drive ``launch.steps.make_serve_step`` on ``gemma2-9b`` for 8 steps
+   after a prefill: each step's fused probe (``probe_update``) against
+   its plain version on the same tap, predicted lengths finite;
+9. profile one ``gemma2-9b`` decode megastep and one prefill chunk.
 
-The last two lines are the kernels' JSON record and
+Every kernel launch count is set to 0 just before a path is driven and
+read just after it; launches made to compare a kernel with its plain
+version do not count. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. The engine's own latencies come from
 its cost model (a TPU v5e preset) and are not printed as card times: the
-serve phase reports host wall time around work that ends in
+serve phases report host wall time around work that ends in
 ``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +80,9 @@ PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # float32 outside the tensor cores
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}        # max |kernel - plain|
 ROUNDING = {"float32": None, "bfloat16": (2.0 ** -7, 1e-4)}   # (rel, abs)
+PROBE_TOL = 1e-5
+PAGED_ARGS = ("q", "k_pages", "v_pages", "kpos_pages", "block_table", "q_pos")
+SLOT_ARGS = ("q", "k", "v", "kpos", "q_pos")
 
 
 def log(*args):
@@ -67,7 +95,7 @@ def fail(msg: str):
 
 
 # ---------------------------------------------------------------------------
-# kernel inputs, bound and timing
+# kernel inputs, bounds and timing
 # ---------------------------------------------------------------------------
 
 def paged_case(torch, *, B, T, H, KH, hd, ps, pmax, dtype, seed,
@@ -113,16 +141,85 @@ def paged_case(torch, *, B, T, H, KH, hd, ps, pmax, dtype, seed,
                 q_pos=torch.from_numpy(q_pos).to(dev))
 
 
-def bound(case, dtype):
-    """Least card time for one call: (ms, "bytes" or "operations").
+def slot_case(torch, *, B, H, KH, hd, M, window, dtype, seed, inactive=(),
+              lengths=None):
+    """Random slot cache laid out as ``cache_write`` lays it out (on the
+    card). Without a window, position p sits in slot p; with one the M
+    slots are a ring holding each row's last M positions at slot p % M,
+    so a row longer than M has wrapped and its positions are out of slot
+    order. Row lengths are random (up to 3M for a ring) unless given;
+    q_pos is each row's last position, -1 for rows in ``inactive``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(tdt)
+    k = torch.randn((B, M, KH, hd), generator=g, device=dev).to(tdt)
+    v = torch.randn((B, M, KH, hd), generator=g, device=dev).to(tdt)
+    if lengths is None:
+        lengths = rng.integers(1, 3 * M if window else M, size=B)
+    kpos = np.full((B, M), -1, np.int32)
+    for b, n in enumerate(lengths):
+        pos = np.arange(max(0, int(n) - M), int(n))
+        kpos[b, pos % M if window else pos] = pos
+    q_pos = (np.asarray(lengths) - 1).astype(np.int32)
+    q_pos[list(inactive)] = -1
+    return dict(q=q, k=k, v=v, kpos=torch.from_numpy(kpos).to(dev),
+                q_pos=torch.from_numpy(q_pos).to(dev))
 
-    Bytes: each input read once (the K/V/kpos of the pages the block
+
+def probe_case(torch, *, B, d, hid, k, tap_dtype, seed, fallback=False):
+    """Probe weights at the reference init scales, a tap and a previous
+    posterior (on the card). With ``fallback`` row 0's prior and probe
+    distribution do not overlap: its tap is scaled up (by powers of 10)
+    until the probe puts all its mass on one bin (every other exponential
+    underflows to 0), and its previous posterior sits on the bin half the
+    bins away, so prior * p sums to 0 there and the filter falls back to
+    the prior. The other rows keep ordinary distributions."""
+    from repro_torch.config import ProbeConfig
+    from repro_torch.core.predictor import apply_probe
+    from repro_torch.core.smoothing import transition_matrix
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+    w = dict(w1=torch.randn((d, hid), generator=g, device=dev) * d ** -0.5,
+             b1=0.1 * torch.randn((hid,), generator=g, device=dev),
+             w2=torch.randn((hid, k), generator=g, device=dev) * hid ** -0.5,
+             b2=0.1 * torch.randn((k,), generator=g, device=dev))
+    tap = torch.randn((B, d), generator=g, device=dev)
+    q_prev = torch.softmax(torch.randn((B, k), generator=g, device=dev), -1)
+    T = torch.as_tensor(transition_matrix(ProbeConfig(num_bins=k)),
+                        dtype=f32, device=dev)
+    tap = tap.to(getattr(torch, tap_dtype))
+    if fallback:        # scale until every other bin underflows
+        row = tap[:1]
+        while True:
+            row = row * 10.0
+            p = torch.softmax(apply_probe(w, row), dim=-1)[0]
+            j = (int(p.argmax()) + k // 2) % k
+            if float((p * T[:, j]).sum()) == 0.0:
+                break
+        tap[0] = row[0]
+        q_prev[0] = 0.0
+        q_prev[0, j] = 1.0
+    return dict(tap=tap, **w, q_prev=q_prev, T=T)
+
+
+def bound_ms(nbytes: float, ops: float, dtype: str):
+    """Least card time: the larger of bytes over the memory rate and
+    operations over the peak rate of the input type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def paged_bound(case, dtype):
+    """Bytes: each input read once (the K/V/kpos of the pages the block
     tables reference, q, the tables, q_pos) and the output written once.
     Operations: 4*hd (QK^T and PV) per (query head, key) pair that the
-    function computes: each query against each key of its row that the
-    mask lets it see (kpos >= 0 and kpos <= q_pos; no window here), at the
-    peak rate of the input type.
-    """
+    position mask lets through (kpos >= 0 and kpos <= q_pos; no window)."""
     q, k, bt, qp = (case["q"], case["k_pages"], case["block_table"],
                     case["q_pos"])
     B, T, H, hd = q.shape
@@ -132,13 +229,39 @@ def bound(case, dtype):
     nbytes = (pages * ps * (2 * KH * hd * el + 4) + 2 * q.numel() * el
               + bt.numel() * 4 + qp.numel() * 4)
     kpos = case["kpos_pages"][bt.long()].reshape(B, 1, -1)      # (B,1,M)
-    qp = qp.reshape(B, T, 1)
-    pairs = int(((kpos >= 0) & (kpos <= qp)).sum())
-    ops = 4 * hd * H * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[dtype]
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    pairs = int(((kpos >= 0) & (kpos <= qp.reshape(B, T, 1))).sum())
+    return bound_ms(nbytes, 4 * hd * H * pairs, dtype)
+
+
+def slot_bound(case, window, dtype):
+    """Bytes: q and q_pos, the kpos of the slots the function must look at
+    (a ring: all M; without a window: slots 0..q_pos, where cache_write
+    puts every position a query can see), the K and V rows the mask lets
+    through, read once each, and the output written once. Operations:
+    4*hd per (query head, valid key) pair."""
+    q, k, kpos, qp = case["q"], case["k"], case["kpos"], case["q_pos"]
+    B, H, hd = q.shape
+    M, KH = k.shape[1], k.shape[2]
+    el = q.element_size()
+    valid = (kpos >= 0) & (kpos <= qp[:, None])
+    if window:
+        valid &= kpos > qp[:, None] - window
+    looked = B * M if window else int((qp + 1).clamp(0, M).sum())
+    rows = int(valid.sum())
+    nbytes = rows * 2 * KH * hd * el + looked * 4 + 2 * q.numel() * el + B * 4
+    return bound_ms(nbytes, 4 * hd * H * rows, dtype)
+
+
+def probe_bound(case):
+    """Bytes: every input read once (w1 dominates) and both outputs
+    written once. Operations: 2*B*d*hid + 2*B*hid*k for the two products,
+    at the float32 rate of the card's CUDA cores (w1 is float32)."""
+    tap, w1, w2 = case["tap"], case["w1"], case["w2"]
+    B, d = tap.shape
+    hid, k = w2.shape
+    nbytes = (sum(t.numel() * t.element_size() for t in case.values())
+              + 2 * B * k * 4)
+    return bound_ms(nbytes, 2 * B * d * hid + 2 * B * hid * k, "float32")
 
 
 def time_ms(torch, fn, iters=30, warmup=3):
@@ -155,7 +278,26 @@ def time_ms(torch, fn, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def library_call(torch, case):
+def time_cold_ms(torch, fn, iters=30, warmup=3):
+    """Mean time of one call with the 50 MB L2 flushed before each (a 256
+    MB write between calls, outside the timed events)."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def paged_library_call(torch, case):
     """One ``scaled_dot_product_attention`` over the gathered cache with the
     same position mask: the yardstick (never used by the port)."""
     import torch.nn.functional as F
@@ -170,6 +312,45 @@ def library_call(torch, case):
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, kg, vg))
     mask = mask[:, None]
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+
+def slot_library_call(case, window):
+    """``scaled_dot_product_attention`` over the slot cache with the same
+    mask (one query per row, K/V heads repeated for the query groups
+    outside the timed call). SDPA has no softcap; it times the same
+    attention without one."""
+    import torch.nn.functional as F
+    q, k, v, kpos, qp = (case[n] for n in SLOT_ARGS)
+    B, H, hd = q.shape
+    KH = k.shape[2]
+    kh, vh = (x.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    valid = (kpos >= 0) & (kpos <= qp[:, None])
+    if window:
+        valid &= kpos > qp[:, None] - window
+    qh = q[:, :, None]
+    mask = valid[:, None, None]
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+
+def compare(name, label, got, want, dtype):
+    """Max |kernel - plain| and the elements past one bf16 rounding; fails
+    on a dtype or shape mismatch or a disagreement."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+             f"{want.dtype}{tuple(want.shape)}")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    over = 0
+    if ROUNDING[dtype] is not None:
+        rel, atol = ROUNDING[dtype]
+        over = int((diff > rel * want.float().abs() + atol).sum())
+    log(f"[check] {name:30s} {label}: max|kernel-plain|={err:.3e} "
+        f"(tol {TOL[dtype]:.0e}), {over} element(s) past one rounding")
+    if not err <= TOL[dtype] or over:
+        fail(f"{name} disagrees with its plain version ({label}): {err}, "
+             f"{over} element(s) past one bf16 rounding")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -207,16 +388,18 @@ def phase_build():
 def ptxas_usage(report: str):
     """(kernel instance, "registers; spills") per entry function of an
     ``nvcc -Xptxas -v`` report."""
-    import re
     kernel, spills = None, ""
     for line in report.splitlines():
-        m = re.search(r"\d(paged_[a-z_]+_kernel)I(\w*?)EE+v", line)
-        if m and "Compiling entry function" in line:
-            args = re.findall(r"__nv_bfloat16|^f|\d+(?=E)",
-                              m.group(2).replace("Li", "") + "E")
-            args = [{"__nv_bfloat16": "bf16", "f": "f32"}.get(a, a)
-                    for a in args]
-            kernel = f"{m.group(1)}<{', '.join(args)}>"
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+([a-z_]+_kernel)", mangled)
+            args = (["bf16"] if "__nv_bfloat16" in mangled else
+                    ["f32"] if re.search(r"_kernelIf", mangled) else [])
+            args += re.findall(r"Li(\d+)E", mangled)
+            args += [r for r in ("PagedRows", "SlotRows") if r in mangled]
+            kernel = (f"{base.group(1) if base else mangled}"
+                      f"<{', '.join(args)}>")
         elif kernel and "spill" in line:
             spills = line.split(":", 1)[-1].strip()
         elif kernel and "registers" in line:
@@ -224,20 +407,31 @@ def ptxas_usage(report: str):
             kernel = None
 
 
-SHAPES = {  # (H, KH, hd) of the two served architectures
+PAGED_SHAPES = {  # (H, KH, hd) of the served architectures
     "granite-3-8b": (32, 8, 128),
     "trail-llama": (12, 4, 64),
+    "gemma2-9b": (16, 8, 256),
 }
+
+SLOT_CASES = [  # arch, H, KH, hd, M, window, softcap
+    ("gemma2-9b global", 16, 8, 256, 4608, 0, 50.0),
+    ("gemma2-9b local", 16, 8, 256, 4096, 4096, 50.0),
+    ("gemma3-1b local", 4, 1, 256, 512, 512, 0.0),
+    ("granite-3-8b", 32, 8, 128, 448, 0, 0.0),
+]
 
 
 def phase_check(torch):
-    """Kernel vs plain version on the same inputs; returns max errors."""
-    from repro_torch.kernels import paged_decode_attention as kern
-    from repro_torch.kernels import ref
-    worst = {"paged_decode_attention": 0.0,
-             "paged_decode_attention_multi": 0.0}
+    """Every kernel against its plain version on the same inputs; returns
+    the worst error of each at the shapes its row in the JSON line times."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import paged_decode_attention as paged
+    from repro_torch.kernels import probe, ref
+    worst = dict.fromkeys(("paged_decode_attention",
+                           "paged_decode_attention_multi",
+                           "decode_attention", "probe_update"), 0.0)
     seed = 0
-    for arch, (H, KH, hd) in SHAPES.items():
+    for arch, (H, KH, hd) in PAGED_SHAPES.items():
         for dtype in ("float32", "bfloat16"):
             for T, cap in ((1, 0.0), (1, 50.0), (8, 0.0), (8, 50.0),
                            (256, 0.0)):
@@ -245,160 +439,299 @@ def phase_check(torch):
                 case = paged_case(torch, B=16, T=T, H=H, KH=KH, hd=hd, ps=16,
                                   pmax=64, dtype=dtype, seed=seed,
                                   inactive=(3, 11))
-                args = [case[n] for n in ("q", "k_pages", "v_pages",
-                                          "kpos_pages", "block_table",
-                                          "q_pos")]
+                args = [case[n] for n in PAGED_ARGS]
                 if T == 1:
                     name = "paged_decode_attention"
                     args[0], args[5] = args[0][:, 0].contiguous(), \
                         args[5][:, 0].contiguous()
-                    got = kern.paged_decode_attention(*args, softcap=cap)
+                    got = paged.paged_decode_attention(*args, softcap=cap)
                     want = ref.paged_decode_attention_ref(*args, softcap=cap)
                 else:
                     name = "paged_decode_attention_multi"
-                    got = kern.paged_decode_attention_multi(*args,
-                                                            softcap=cap)
+                    got = paged.paged_decode_attention_multi(*args,
+                                                             softcap=cap)
                     want = ref.paged_decode_attention_multi_ref(*args,
                                                                 softcap=cap)
                 torch.cuda.synchronize()
-                if got.dtype != want.dtype or got.shape != want.shape:
-                    fail(f"{name}: {got.dtype}{tuple(got.shape)} vs "
-                         f"{want.dtype}{tuple(want.shape)}")
-                diff = (got.float() - want.float()).abs()
-                err = float(diff.max())
-                over = 0
-                if ROUNDING[dtype] is not None:
-                    rel, atol = ROUNDING[dtype]
-                    over = int((diff > rel * want.float().abs() + atol).sum())
-                zero_rows = float(got[[3, 11]].float().abs().max())
-                log(f"[check] {name:30s} {arch:13s} {dtype:8s} T={T:3d} "
-                    f"softcap={cap:4.0f}: max|kernel-plain|={err:.3e} "
-                    f"(tol {TOL[dtype]:.0e}), {over} element(s) past one "
-                    f"rounding; inactive rows max|.|={zero_rows:.1e}")
-                if not err <= TOL[dtype] or over:
-                    fail(f"{name} disagrees with its plain version: {err}, "
-                         f"{over} element(s) past one bf16 rounding")
-                if zero_rows != 0.0:
+                err = compare(name, f"{arch:13s} {dtype:8s} T={T:3d} "
+                              f"softcap={cap:4.0f}", got, want, dtype)
+                if float(got[[3, 11]].float().abs().max()) != 0.0:
                     fail(f"{name}: inactive rows are not zero")
                 if dtype == "bfloat16" and arch == "granite-3-8b":
                     worst[name] = max(worst[name], err)
+    for arch, H, KH, hd, M, window, cap in SLOT_CASES:
+        for dtype in ("float32", "bfloat16"):
+            seed += 1
+            case = slot_case(torch, B=16, H=H, KH=KH, hd=hd, M=M,
+                             window=window, dtype=dtype, seed=seed,
+                             inactive=(3, 11))
+            args = [case[n] for n in SLOT_ARGS]
+            got = dec.decode_attention(*args, window=window, softcap=cap)
+            want = ref.decode_attention_ref(*args, window=window,
+                                            softcap=cap)
+            torch.cuda.synchronize()
+            wrapped = int((case["q_pos"] >= M).sum())
+            err = compare("decode_attention",
+                          f"{arch:17s} {dtype:8s} M={M} window={window} "
+                          f"softcap={cap:2.0f} ({wrapped} rows wrapped)",
+                          got, want, dtype)
+            if float(got[[3, 11]].float().abs().max()) != 0.0:
+                fail("decode_attention: inactive rows are not zero")
+            if window and not wrapped:
+                fail("decode_attention: no ring row wrapped")
+            if dtype == "bfloat16" and arch.startswith("gemma2"):
+                worst["decode_attention"] = max(worst["decode_attention"], err)
+    for B, tap_dtype in ((16, "bfloat16"), (16, "float32"), (1, "bfloat16"),
+                         (1, "float32")):
+        seed += 1
+        case = probe_case(torch, B=B, d=3584, hid=512, k=10,
+                          tap_dtype=tap_dtype, seed=seed, fallback=True)
+        got = probe.probe_update(*case.values())
+        want = ref.probe_update_ref(*case.values())
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        prior = case["q_prev"][0] @ case["T"].T
+        fell_back = bool(torch.allclose(got[0][0], prior, atol=PROBE_TOL))
+        log(f"[check] {'probe_update':30s} gemma2-9b B={B:2d} tap "
+            f"{tap_dtype:8s}: max|kernel-plain| q_new {errs[0]:.3e}, p "
+            f"{errs[1]:.3e} (tol {PROBE_TOL:.0e}); row 0 fell back to its "
+            f"prior: {fell_back}")
+        if max(errs) > PROBE_TOL or not fell_back:
+            fail(f"probe_update disagrees with its plain version: {errs}, "
+                 f"fallback {fell_back}")
+        if B == 16 and tap_dtype == "bfloat16":
+            worst["probe_update"] = max(errs)
     return worst
 
 
-def phase_time(torch, worst):
-    """Time each kernel at the serving path's granite shapes (bfloat16)."""
-    from repro_torch.kernels import paged_decode_attention as kern
-    from repro_torch.kernels import ref
-    H, KH, hd = SHAPES["granite-3-8b"]
+def phase_time(torch):
+    """Time each kernel at its path's shapes (bfloat16) beside its plain
+    version, its bound and its library yardstick."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import paged_decode_attention as paged
+    from repro_torch.kernels import probe, ref
     rows = {}
-    for name, T in (("paged_decode_attention", 1),
-                    ("paged_decode_attention_multi", 8),
-                    ("paged_decode_attention_multi", 256)):
+
+    def row(label, shape, kfn, pfn, lib, bound, plain_iters=20,
+            timer=time_ms):
+        plain_ms = timer(torch, pfn, iters=plain_iters)
+        ms = timer(torch, kfn)
+        library_ms = timer(torch, lib, iters=10) if lib else None
+        ms2 = timer(torch, kfn)             # kernel, plain, ..., kernel
+        b_ms, by = bound
+        lib_s = f"{library_ms:.4f} ms" if lib else "none"
+        log(f"[time] {label:40s} {shape}: kernel {ms:.4f} / {ms2:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library {lib_s}, bound {b_ms:.4f} ms "
+            f"({by}), {100 * b_ms / min(ms, ms2):.1f}% of bound")
+        rows[label] = dict(ms=min(ms, ms2), plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=b_ms, bound_by=by)
+
+    for arch, T in (("granite-3-8b", 1), ("granite-3-8b", 8),
+                    ("granite-3-8b", 256), ("gemma2-9b", 1),
+                    ("gemma2-9b", 8)):
+        H, KH, hd = PAGED_SHAPES[arch]
         case = paged_case(torch, B=16, T=T, H=H, KH=KH, hd=hd, ps=16,
                           pmax=64, dtype="bfloat16", seed=100 + T,
                           all_active=True)
-        args = [case[n] for n in ("q", "k_pages", "v_pages", "kpos_pages",
-                                  "block_table", "q_pos")]
+        args = [case[n] for n in PAGED_ARGS]
+        name = "paged_decode_attention" + ("" if T == 1 else "_multi")
         if T == 1:
             args[0], args[5] = args[0][:, 0].contiguous(), \
                 args[5][:, 0].contiguous()
-            kfn = lambda: kern.paged_decode_attention(*args)  # noqa: E731
+            kfn = lambda: paged.paged_decode_attention(*args)  # noqa: E731
             pfn = lambda: ref.paged_decode_attention_ref(*args)  # noqa: E731
         else:
-            kfn = lambda: kern.paged_decode_attention_multi(*args)  # noqa: E731
+            kfn = lambda: paged.paged_decode_attention_multi(*args)  # noqa: E731
             pfn = lambda: ref.paged_decode_attention_multi_ref(*args)  # noqa: E731
-        lib = library_call(torch, case)
-        plain_ms = time_ms(torch, pfn, iters=5 if T == 256 else 20)
-        ms = time_ms(torch, kfn)
-        library_ms = time_ms(torch, lib, iters=10)
-        ms2 = time_ms(torch, kfn)           # kernel, plain, ..., kernel
-        bound_ms, by = bound(case, "bfloat16")
-        label = f"{name}[T={T}]"
-        log(f"[time] {label:36s} B=16 H=32 KH=8 hd=128 ps=16 pmax=64 bf16: "
-            f"kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
-            f"{100 * bound_ms / min(ms, ms2):.1f}% of bound")
-        rows[label] = dict(ms=min(ms, ms2), plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=by)
+        row(f"{name}[{arch},T={T}]",
+            f"B=16 H={H} KH={KH} hd={hd} ps=16 pmax=64 bf16", kfn, pfn,
+            paged_library_call(torch, case), paged_bound(case, "bfloat16"),
+            plain_iters=5 if T == 256 else 20)
+
+    # decode_attention: a gemma2-9b local layer's full, wrapped ring (every
+    # slot valid), and a global layer's 4609-slot row (4608 + the sink)
+    # holding 300-token contexts, as in the serve phase
+    for label, M, window, lengths in (
+            ("decode_attention[gemma2-9b,ring]", 4097, 4096, [6000] * 16),
+            ("decode_attention[gemma2-9b,global]", 4609, 0, [300] * 16)):
+        case = slot_case(torch, B=16, H=16, KH=8, hd=256, M=M, window=window,
+                         dtype="bfloat16", seed=7, lengths=lengths)
+        args = [case[n] for n in SLOT_ARGS]
+        row(label, f"B=16 H=16 KH=8 hd=256 M={M} window={window} "
+            f"softcap=50 bf16",
+            lambda: dec.decode_attention(*args, window=window, softcap=50.0),
+            lambda: ref.decode_attention_ref(*args, window=window,
+                                             softcap=50.0),
+            slot_library_call(case, window),
+            slot_bound(case, window, "bfloat16"))
+
+    case = probe_case(torch, B=16, d=3584, hid=512, k=10,
+                      tap_dtype="bfloat16", seed=9)
+    args = list(case.values())
+    row("probe_update[gemma2-9b]", "B=16 d=3584 hid=512 k=10 bf16 tap, "
+        "L2 flushed", lambda: probe.probe_update(*args),
+        lambda: ref.probe_update_ref(*args), None, probe_bound(case),
+        timer=time_cold_ms)
     return rows
 
 
-def phase_reference(torch):
-    """granite-smoke in float32: the model on the card (kernels) against
-    the same weights on the CPU (plain versions)."""
+def _model_pair(arch, seed):
+    """The float32 smoke model on the card and the same weights on the CPU."""
     from repro_torch.config import get_smoke_config
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_smoke_config("granite-3-8b"),
-                              dtype="float32")
-    gpu = Model(cfg, device="cuda").init(seed=7)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    gpu = Model(cfg, device="cuda").init(seed=seed)
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
-    g = torch.Generator().manual_seed(7)
-    tokens = torch.randint(1, cfg.vocab_size, (4, 24), generator=g,
-                           dtype=torch.int32)
-    valid = torch.ones((4, 24), dtype=torch.bool)
-    valid[1, 20:] = False
-    budget = torch.tensor([6, 3, 6, 0], dtype=torch.int32)
-    out = {}
-    for dev, m in (("cuda", gpu), ("cpu", cpu)):
-        cache = m.init_cache(4, 64, page_size=16)
-        table = torch.zeros_like(cache["block_table"])
-        table[:, :2] = torch.tensor([[5, 2], [9, 1], [4, 12], [7, 3]])
-        cache["block_table"].copy_(table)
-        logits, cache, tap_sum, _ = m.prefill_chunk(cache, tokens.to(dev),
-                                                    valid.to(dev))
-        tok = logits.argmax(-1).to(torch.int32)[:, None]
-        toks, cache, probs, n = m.decode_multi(cache, tok, budget=budget.to(dev),
-                                               k=6)
-        out[dev] = [x.cpu() for x in (logits, tap_sum, toks, probs, n)]
-    torch.cuda.synchronize()
-    errs = [float((a.float() - b.float()).abs().max())
-            for a, b in zip(out["cuda"], out["cpu"])]
-    log(f"[reference] granite-smoke f32, card vs CPU: logits {errs[0]:.2e}, "
-        f"tap_sum {errs[1]:.2e}, probe probs {errs[3]:.2e}, tokens equal "
-        f"{bool(torch.equal(out['cuda'][2], out['cpu'][2]))}, n_emitted "
-        f"{out['cuda'][4].tolist()}")
-    if not (errs[0] <= 1e-4 and errs[1] <= 1e-3 and errs[3] <= 1e-4):
-        fail(f"model on the card disagrees with the CPU: {errs}")
-    if errs[2] != 0 or errs[4] != 0:
-        fail("greedy tokens on the card differ from the CPU")
+    return cfg, gpu, cpu
 
 
-def phase_serve(torch):
-    from repro_torch.config import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import Model
-    from repro_torch.serving.engine import Engine, EngineConfig, run_policy
-    from repro_torch.serving.predictors import ProbePredictor
+def phase_reference(torch):
+    """Smoke configs in float32: the model on the card (kernels) against
+    the same weights on the CPU (plain versions). gemma2-smoke's window is
+    16: its prompts (24 tokens, then 20 more) wrap the rings in a chunk."""
+    for arch, layout in (("granite-3-8b", "paged"), ("gemma2-9b", "contig"),
+                         ("gemma2-9b", "paged")):
+        cfg, gpu, cpu = _model_pair(arch, seed=7)
+        g = torch.Generator().manual_seed(7)
+        chunks = [torch.randint(1, cfg.vocab_size, (4, w), generator=g,
+                                dtype=torch.int32) for w in (24, 20)]
+        pages = torch.randperm(16, generator=g, dtype=torch.int32) + 1
+        valid = torch.ones((4, 24), dtype=torch.bool)
+        valid[1, 20:] = False
+        budget = torch.tensor([6, 3, 6, 0], dtype=torch.int32)
+        out = {}
+        for dev, m in (("cuda", gpu), ("cpu", cpu)):
+            cache = m.init_cache(4, 64, kv_layout=layout, page_size=16)
+            if layout == "paged":       # scrambled pages, 4 per row
+                cache["block_table"].copy_(pages.reshape(4, 4))
+            logits, cache, tap_sum, _ = m.prefill_chunk(
+                cache, chunks[0].to(dev), valid.to(dev))
+            logits, cache, _, _ = m.prefill_chunk(cache, chunks[1].to(dev))
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            toks, cache, probs, n = m.decode_multi(
+                cache, tok, budget=budget.to(dev), k=6)
+            out[dev] = [x.cpu() for x in (logits, tap_sum, toks, probs, n)]
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(out["cuda"], out["cpu"])]
+        log(f"[reference] {cfg.name} f32 {layout}, card vs CPU: logits "
+            f"{errs[0]:.2e}, tap_sum {errs[1]:.2e}, probe probs "
+            f"{errs[3]:.2e}, tokens equal "
+            f"{bool(torch.equal(out['cuda'][2], out['cpu'][2]))}, n_emitted "
+            f"{out['cuda'][4].tolist()}")
+        if not (errs[0] <= 1e-4 and errs[1] <= 1e-3 and errs[3] <= 1e-4):
+            fail(f"{cfg.name} on the card disagrees with the CPU: {errs}")
+        if errs[2] != 0 or errs[4] != 0:
+            fail(f"{cfg.name}: greedy tokens on the card differ from the CPU")
+
+
+def _requests(cfg, n, seed, long_prompts=()):
+    """``n`` synthetic requests (prompts 130-375 tokens, outputs 8-64),
+    plus one request per entry of ``long_prompts`` with a prompt of that
+    many tokens, arriving among the others."""
+    import numpy as np
+    from repro_torch.serving.request import Request
     from repro_torch.serving.workload import WorkloadConfig, generate
-    cfg = get_config("granite-3-8b")
-    t0 = time.perf_counter()
-    model = Model(cfg, device="cuda").init(seed=0)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.2f} B params "
-        f"(matmul weights bf16) initialised in "
-        f"{time.perf_counter() - t0:.1f} s")
-    wc = WorkloadConfig(n_requests=12, request_rate=50.0, seed=0,
+    wc = WorkloadConfig(n_requests=n, request_rate=50.0, seed=seed,
                         vocab=cfg.vocab_size, prompt_mean=256.0,
                         prompt_sigma=0.3, out_median=32.0, out_sigma=0.5,
                         max_out=64, min_out=8)
     reqs = generate(wc)
-    max_len = 16 * -(-max(len(r.prompt) + r.max_new_tokens + 1
-                          for r in reqs) // 16)
-    knobs = dict(mode="real", kv_layout="paged", probe_interval=4,
-                 max_batch=16, max_len=max_len, page_size=16)
-    log(f"[serve] {len(reqs)} requests, prompts "
-        f"{min(len(r.prompt) for r in reqs)}-"
-        f"{max(len(r.prompt) for r in reqs)} tokens, outputs "
-        f"{min(r.true_out_len for r in reqs)}-"
-        f"{max(r.true_out_len for r in reqs)} tokens; max_len {max_len}")
-    pred = ProbePredictor(cfg.probe, probe_params=model.probe,
-                          embed_table=model.embed)
+    rng = np.random.default_rng(seed)
+    for i, n_tok in enumerate(long_prompts):
+        reqs.append(Request(
+            rid=n + i, arrival=reqs[2 + 3 * i].arrival + 1e-3,
+            prompt=rng.integers(1, cfg.vocab_size, n_tok).tolist(),
+            max_new_tokens=wc.max_out,
+            true_out_len=int(rng.integers(wc.min_out, wc.max_out + 1))))
+    return reqs
 
+
+def _max_len(reqs):
+    return 16 * -(-max(len(r.prompt) + r.max_new_tokens + 1
+                       for r in reqs) // 16)
+
+
+def _check_requests(torch, cfg, reqs):
+    """Every request finished with its tokens, in the vocabulary, and its
+    probe posterior and predicted length are finite."""
+    for r in reqs:
+        if not r.done or len(r.generated) != min(r.true_out_len,
+                                                 r.max_new_tokens):
+            fail(f"rid {r.rid} did not finish with its tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.generated):
+            fail(f"rid {r.rid}: token out of range")
+        if not (torch.isfinite(torch.as_tensor(r.posterior)).all()
+                and torch.isfinite(torch.tensor(r.entry.pred_remaining))):
+            fail(f"rid {r.rid}: non-finite probe posterior or prediction")
+
+
+def _check_cache_finite(torch, cache):
+    for key, run in cache.items():
+        if key.startswith("run_"):
+            for sub in run:
+                for leaf in ("pk", "pv", "k", "v"):
+                    if leaf in sub and not torch.isfinite(sub[leaf]).all():
+                        fail(f"non-finite values in the KV cache ({key})")
+
+
+def _stepped_run(torch, cfg, model, reqs, knobs, pred):
+    """Drive an engine by hand: the device lengths must equal each live
+    request's materialized KV after every step."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    eng = Engine(cfg, EngineConfig(policy="trail", prefill_chunk=256,
+                                   **knobs),
+                 predictor=pred, model=model, device="cuda")
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while eng.has_work():
+        eng.step()
+        steps += 1
+        eng.pool.flush_resets()     # recycled slots' resets, as the next
+        lengths = eng.pool.cache["lengths"].cpu().tolist()   # step would
+        for r in reqs:
+            if r.slot >= 0 and not r.done:
+                written = getattr(r, "_kv_written", 0)
+                if lengths[r.slot] != written:
+                    fail(f"lengths != _kv_written for rid {r.rid}: "
+                         f"{lengths[r.slot]} vs {written}")
+    _check_requests(torch, cfg, reqs)
+    _check_cache_finite(torch, eng.pool.cache)
+    return steps
+
+
+def _serve(torch, cfg, model, reqs, knobs, pred):
+    """One ``run_policy`` over ``reqs`` with every launch count at 0 just
+    before and read just after; checks that every request finished with
+    finite predictions. Returns (launches, decode steps)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import run_policy
+    steps = [0]
+    decode_step = model.decode_step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return decode_step(*args, **kwargs)
+
+    # run_policy serves copies of the requests: the predictor's hooks see
+    # them, with the probe's inputs and outputs, which must be finite
+    served = {}
+
+    def watch(hook):
+        def watched(r, *args):
+            out = hook(r, *args)
+            served[r.rid] = r
+            if not (math.isfinite(out) and all(
+                    torch.isfinite(torch.as_tensor(a)).all() for a in args)):
+                fail(f"rid {r.rid}: non-finite probe input or prediction")
+            return out
+        return watched
+
+    model.decode_step = counted
+    pred.on_prefill, pred.on_token = (watch(pred.on_prefill),
+                                      watch(pred.on_token))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -408,79 +741,175 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
+    del model.decode_step, pred.on_prefill, pred.on_token
     peak = torch.cuda.max_memory_allocated()
     out_tokens = sum(r.true_out_len for r in reqs)
     s = stats.summary()
-    log(f"[serve] run_policy(trail, real, paged, probe_interval=4): "
+    log(f"[serve] run_policy(trail, real, {knobs['kv_layout']}, "
+        f"probe_interval={knobs['probe_interval']}): "
         f"{len(stats.latencies)}/{len(reqs)} finished, {s['iterations']} "
-        f"engine steps, {s['preemptions']} preemptions, "
-        f"{s['prefilled_tokens']} prefilled tokens, {out_tokens} generated "
-        f"tokens")
+        f"engine steps, {steps[0]} decode steps, {s['preemptions']} "
+        f"preemptions, {s['prefilled_tokens']} prefilled tokens, "
+        f"{out_tokens} generated tokens")
     log(f"[serve] wall {wall:.3f} s (host clock, ends in synchronize), "
         f"{out_tokens / wall:.1f} generated tokens/s, "
         f"{(out_tokens + s['prefilled_tokens']) / wall:.1f} tokens/s with "
         f"prefill, max_memory_allocated {peak / 2**30:.2f} GiB")
     log(f"[serve] kernel launches on the main path: {launches}")
-    if len(stats.latencies) != len(reqs):
+    if len(stats.latencies) != len(reqs) or len(served) != len(reqs):
         fail("not every request finished")
-    for name, n in launches.items():
-        if n <= 0:
+    _check_requests(torch, cfg, served.values())
+    return launches, steps[0]
+
+
+def _load(torch, arch):
+    from repro_torch.config import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.predictors import ProbePredictor
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}; "
+        f"{n_params / 1e9:.2f} B params (matmul weights bf16) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pred = ProbePredictor(cfg.probe, probe_params=model.probe,
+                          embed_table=model.embed)
+    return cfg, model, pred
+
+
+def _describe(reqs, max_len):
+    log(f"[serve] {len(reqs)} requests, prompts "
+        f"{sorted(len(r.prompt) for r in reqs)} tokens, outputs "
+        f"{min(r.true_out_len for r in reqs)}-"
+        f"{max(r.true_out_len for r in reqs)} tokens; max_len {max_len}")
+
+
+def phase_serve_granite(torch):
+    cfg, model, pred = _load(torch, "granite-3-8b")
+    reqs = _requests(cfg, 12, 0)
+    max_len = _max_len(reqs)
+    knobs = dict(mode="real", kv_layout="paged", probe_interval=4,
+                 max_batch=16, max_len=max_len, page_size=16)
+    _describe(reqs, max_len)
+    launches, _ = _serve(torch, cfg, model, reqs, knobs, pred)
+    for name in ("paged_decode_attention", "paged_decode_attention_multi"):
+        if launches[name] <= 0:
             fail(f"kernel {name} never launched on the main path")
-
-    # a second, short run stepped by hand: the device lengths must equal
-    # each live request's materialized KV after every step, and nothing
-    # the model produced may be NaN
-    reqs2 = generate(dataclasses.replace(wc, n_requests=5, seed=1))
-    eng = Engine(cfg, EngineConfig(policy="trail", prefill_chunk=256, **knobs),
-                 predictor=pred, model=model, device="cuda")
-    for r in reqs2:
-        eng.submit(r)
-    steps = 0
-    while eng.has_work():
-        eng.step()
-        steps += 1
-        eng.pool.flush_resets()     # recycled slots' resets, as the next
-        lengths = eng.pool.cache["lengths"].cpu().tolist()   # step would
-        for r in reqs2:
-            if r.slot >= 0 and not r.done:
-                written = getattr(r, "_kv_written", 0)
-                if lengths[r.slot] != written:
-                    fail(f"lengths != _kv_written for rid {r.rid}: "
-                         f"{lengths[r.slot]} vs {written}")
-    for r in reqs2:
-        if not r.done or len(r.generated) != min(r.true_out_len,
-                                                 r.max_new_tokens):
-            fail(f"rid {r.rid} did not finish with its tokens")
-        if not all(0 <= t < cfg.vocab_size for t in r.generated):
-            fail(f"rid {r.rid}: token out of range")
-        if not torch.isfinite(torch.as_tensor(r.posterior)).all():
-            fail(f"rid {r.rid}: non-finite probe posterior")
-    for key, run in eng.pool.cache.items():
-        if key.startswith("run_"):
-            for sub in run:
-                for leaf in ("pk", "pv"):
-                    if not torch.isfinite(sub[leaf]).all():
-                        fail(f"non-finite values in the KV pool ({key})")
-    log(f"[serve] stepped run: {len(reqs2)} requests in {steps} steps, "
-        f"lengths == _kv_written after every step, tokens in range, "
-        f"posteriors and KV pool finite")
-    return launches, model
+    steps = _stepped_run(torch, cfg, model, _requests(cfg, 5, 1), knobs, pred)
+    log(f"[serve] stepped run: 5 requests in {steps} steps, lengths == "
+        f"_kv_written after every step, tokens in range, posteriors and KV "
+        f"pool finite")
+    cache = model.init_cache(16, 448, kv_layout="paged", page_size=16)
+    cache["block_table"].copy_(torch.arange(
+        1, 1 + 16 * 28, dtype=torch.int32, device="cuda").reshape(16, 28))
+    phase_profile(torch, model, cache)
+    return launches
 
 
-def phase_profile(torch, model):
+def phase_serve_gemma2(torch, cfg, model, pred):
+    """gemma2-9b at full width and depth: the contiguous serve, then a
+    stepped paged run on the same model."""
+    reqs = _requests(cfg, 10, 0, long_prompts=(4200, 4400))
+    max_len = _max_len(reqs)
+    knobs = dict(mode="real", kv_layout="contig", probe_interval=4,
+                 max_batch=16, max_len=max_len, page_size=16)
+    _describe(reqs, max_len)
+    launches, steps = _serve(torch, cfg, model, reqs, knobs, pred)
+    if launches["decode_attention"] != cfg.num_layers * steps or not steps:
+        fail(f"decode_attention ran {launches['decode_attention']} times "
+             f"for {steps} decode steps of {cfg.num_layers} layers")
+    log(f"[serve] decode_attention ran {cfg.num_layers} x {steps} times; "
+        f"rings of {cfg.sliding_window} slots wrapped by the prompts of "
+        f"{[len(r.prompt) for r in reqs if len(r.prompt) > 4096]} tokens")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.kernels import ops
+    reqs2 = _requests(cfg, 4, 1)
+    paged = dict(knobs, kv_layout="paged", max_len=_max_len(reqs2))
+    ops.reset_launches()
+    steps = _stepped_run(torch, cfg, model, reqs2, paged, pred)
+    paged_launches = dict(ops.launches)
+    log(f"[serve] stepped paged run: 4 requests in {steps} steps, lengths "
+        f"== _kv_written after every step, tokens in range, posteriors and "
+        f"KV finite; launches {paged_launches}")
+    for name in ("paged_decode_attention", "paged_decode_attention_multi",
+                 "decode_attention"):
+        if paged_launches[name] <= 0:
+            fail(f"kernel {name} never launched on the paged gemma2 path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_step(torch, cfg, model):
+    """``make_serve_step`` for 8 steps after a 300-token prefill of 16 rows:
+    each fused probe call against its plain version on the same tap."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    seen = []
+    fused = ops.probe_update
+
+    def spy(*args):
+        out = fused(*args)
+        seen.append((args, out))
+        return out
+
+    B, k = 16, cfg.probe.num_bins
+    cache = model.init_cache(B, 512)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(1, cfg.vocab_size, (B, 300), generator=g,
+                           device="cuda", dtype=torch.int32)
+    logits, cache, _, _ = steps.make_prefill_step(model)(cache, tokens)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    q = torch.full((B, k), 1.0 / k, device="cuda")
+    serve_step = steps.make_serve_step(model)
+    ops.probe_update = spy
+    ops.reset_launches()
+    try:
+        for _ in range(8):
+            nxt, cache, q, pred = serve_step(cache, tok, q)
+            if not torch.isfinite(pred).all() or not torch.isfinite(q).all():
+                fail("serve_step: non-finite posterior or predicted length")
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+    finally:
+        ops.probe_update = fused
+    launches = dict(ops.launches)
+    worst = 0.0
+    for args, out in seen:
+        want = ref.probe_update_ref(*args)
+        worst = max(worst, *(float((a - b).abs().max())
+                             for a, b in zip(out, want)))
+    log(f"[serve-step] {cfg.name}: 8 fused serve steps, B={B}: "
+        f"{len(seen)} probe_update calls, max|kernel-plain| {worst:.3e} "
+        f"(tol {PROBE_TOL:.0e}); launches {launches}; predicted remaining "
+        f"{[round(x, 2) for x in pred[:4].tolist()]}")
+    if len(seen) != 8 or worst > PROBE_TOL:
+        fail("serve_step's fused probe disagrees with its plain version")
+    if (launches["probe_update"] != 8
+            or launches["decode_attention"] != 8 * cfg.num_layers):
+        fail(f"serve_step launches {launches}")
+    return launches, cache
+
+
+def phase_profile(torch, model, cache):
     """Where a step's time goes: one decode megastep (k=4, 16 rows at ~300
     tokens of context) and one prefill chunk (256 wide, 2 of 16 rows
-    active) of the served model. Wall time is the median of three runs on
-    the host clock, without the profiler; one run under ``torch.profiler``
-    then gives the device busy time (the sum of the kernels' durations, one
-    stream) and the kernels that take it. Busy over wall is the device's
-    busy share; the rest of the wall time the device sits idle."""
+    active) of a served model, on ``cache`` (16 rows, empty). Wall time is
+    the median of three runs on the host clock, without the profiler; one
+    run under ``torch.profiler`` then gives the device busy time (the sum
+    of the kernels' durations, one stream) and the kernels that take it.
+    Busy over wall is the device's busy share; the rest of the wall time
+    the device sits idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B, dev = 16, "cuda"
-    cache = model.init_cache(B, 448, page_size=16)
-    cache["block_table"].copy_(torch.arange(
-        1, 1 + B * 28, dtype=torch.int32, device=dev).reshape(B, 28))
+    name = model.cfg.name
     g = torch.Generator(device=dev).manual_seed(3)
     vocab = model.cfg.vocab_size
     tokens = torch.randint(1, vocab, (B, 300), generator=g, device=dev,
@@ -511,7 +940,7 @@ def phase_profile(torch, model):
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if not kernels:
-            log(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms; the "
+            log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms; the "
                 f"profiler saw no device events (busy share not measured)")
             continue
         by_name: dict[str, float] = {}
@@ -519,12 +948,12 @@ def phase_profile(torch, model):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
         busy = sum(by_name.values())
-        log(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-            f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+        log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms, device "
+            f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
             f"{len(kernels)} kernel launches")
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
             log(f"[profile]   {100 * us / busy:5.1f}% {us / 1e3:8.3f} ms "
-                f"{name[:90]}")
+                f"{kname[:90]}")
 
 
 def main():
@@ -540,21 +969,38 @@ def main():
         fail(f"the repro_torch package is not beside this script: {e}")
     phase_build()
     worst = phase_check(torch)
-    rows = phase_time(torch, worst)
+    rows = phase_time(torch)
     phase_reference(torch)
-    launches, model = phase_serve(torch)
-    phase_profile(torch, model)
+    granite = phase_serve_granite(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, pred = _load(torch, "gemma2-9b")
+    gemma2 = phase_serve_gemma2(torch, cfg, model, pred)
+    step_launches, cache = phase_serve_step(torch, cfg, model)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_profile(torch, model, model.init_cache(16, 1024))
 
     kernels = []
-    for kname, label, line in (
-            ("paged_decode_attention", "paged_decode_attention[T=1]", 87),
+    for kname, label, source, replaces, launches in (
+            ("paged_decode_attention",
+             "paged_decode_attention[granite-3-8b,T=1]",
+             "paged_decode_attention.cu",
+             "paged_decode_attention.py:87", granite),
             ("paged_decode_attention_multi",
-             "paged_decode_attention_multi[T=256]", 179)):
+             "paged_decode_attention_multi[granite-3-8b,T=256]",
+             "paged_decode_attention.cu",
+             "paged_decode_attention.py:179", granite),
+            ("decode_attention", "decode_attention[gemma2-9b,ring]",
+             "decode_attention.cu", "decode_attention.py:71", gemma2),
+            ("probe_update", "probe_update[gemma2-9b]", "probe.cu",
+             "probe.py:55", step_launches)):
         row = rows[label]
         kernels.append(dict(
             name=kname, route="cuda",
-            source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-            replaces=f"src/repro/kernels/paged_decode_attention.py:{line}",
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=f"src/repro/kernels/{replaces}",
             launches=launches[kname], max_abs_err=worst[kname],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))

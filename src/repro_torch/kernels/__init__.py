@@ -7,11 +7,17 @@ Each kernel ships three pieces:
 
 ``ops.py`` dispatches on the tensor's device: a CPU tensor goes to the
 plain version, a CUDA tensor to the kernel (or the call raises).
-``build.py`` compiles the sources with ``nvcc`` at first use.
+``build.py`` compiles the sources with ``nvcc`` at first use and keeps
+the launch counts.
 
 Kernels:
   paged_decode_attention       — flash-decode, one query per sequence,
                                  over a shared KV page pool
   paged_decode_attention_multi — the same for T queries per sequence
                                  (prefill chunks)
+  decode_attention             — flash-decode, one query per sequence,
+                                 over a contiguous or ring slot cache
+                                 (window, softcap)
+  probe_update                 — the TRAIL probe MLP, softmax and one
+                                 Bayes-filter step
 """

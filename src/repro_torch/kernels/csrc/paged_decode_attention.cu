@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernels of the reference package,
 // src/repro/kernels/paged_decode_attention.py:
-//   paged_decode_attention        (_paged_kernel)       -> paged_decode_kernel
+//   paged_decode_attention        (_paged_kernel)       -> decode_kernel
+//                                   over PagedRows (flash_decode.cuh)
 //   paged_decode_attention_multi  (_paged_multi_kernel) -> paged_multi_kernel
 //
 // Semantics (the plain PyTorch version is repro_torch/kernels/ref.py):
@@ -22,9 +23,9 @@
 // that traffic to one pass: one block per (sequence, KV head) serves all
 // G query heads of the group from one stream of the pages, loads are 16
 // bytes per thread with neighbouring threads on neighbouring addresses,
-// the K and V rows of a whole 64-token chunk are issued before any of
-// them is used (so many loads are in flight per block), and null pages
-// are skipped without a load. The multi-query kernel streams each page
+// the K and V rows of a whole chunk are issued before any of them is
+// used (so many loads are in flight per block), and null pages are
+// skipped without a load. The multi-query kernel streams each page
 // once per tile of 32 query rows for a chunk of T queries; a tile whose
 // rows are all inactive (q_pos = -1, most slots of a prefill batch)
 // writes zeros and returns at once. Its dot products run on plain FMA in
@@ -33,53 +34,14 @@
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_decode.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1073741824.0f;  // -2^30
-constexpr int kThreads = 128;
-constexpr int kChunk = 64;     // decode: tokens per chunk
+using namespace flash_decode;
+
 constexpr int kRows = 32;      // multi: query rows per tile (one per lane)
 constexpr int kMChunk = 32;    // multi: tokens per chunk
-
-template <typename T>
-__device__ __forceinline__ void to_f32(const uint4& raw, float* out);
-
-template <>
-__device__ __forceinline__ void to_f32<float>(const uint4& raw, float* out) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-
-template <>
-__device__ __forceinline__ void to_f32<__nv_bfloat16>(const uint4& raw,
-                                                      float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float cap_score(float s, float softcap) {
-  return softcap != 0.f ? tanhf(s / softcap) * softcap : s;
-}
-
-__device__ __forceinline__ bool key_valid(int kp, int qp, int window) {
-  return kp >= 0 && kp <= qp && (window == 0 || kp > qp - window);
-}
 
 // True when some page overlapping tokens [c0, c1) of row b is not the null
 // page. Uniform across the block.
@@ -90,169 +52,21 @@ __device__ __forceinline__ bool chunk_has_pages(const int* bt, int b, int pmax,
   return false;
 }
 
-// ---------------------------------------------------------------------------
-// Single query per sequence: one block per (KV head, sequence).
-// Threads form groups of TPR = HD/VEC lanes; a group owns one token row at a
-// time (each lane a 16-byte slice), so a warp covers 32/TPR tokens at once.
-// ---------------------------------------------------------------------------
-template <typename T, int HD, int GMAX>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ kpos_pages,
-    const int* __restrict__ block_table, const int* __restrict__ q_pos,
-    T* __restrict__ out, int H, int KH, int ps, int pmax, float scale,
-    int window, float softcap) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int TPR = HD / VEC;
-  constexpr int NGRP = kThreads / TPR;
-  constexpr int TPG = kChunk / NGRP;
-  static_assert(TPR >= 1 && TPR <= 32 && (TPR & (TPR - 1)) == 0, "TPR");
-  static_assert(kChunk % NGRP == 0, "chunk");
-
-  __shared__ float s_sm[GMAX][kChunk];
-  __shared__ float p_sm[GMAX][kChunk];
-  __shared__ unsigned char valid_sm[kChunk];
-  __shared__ float alpha_sm[GMAX];
-  __shared__ float l_sm[GMAX];
-  __shared__ float red[kThreads * VEC];  // == NGRP * HD
-
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int G = H / KH;
-  const int tid = threadIdx.x, grp = tid / TPR, li = tid % TPR;
-  const int qp = q_pos[b];
-  const int ntok = pmax * ps;
-
-  float qr[GMAX][VEC];
-  float acc[GMAX][VEC];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < G) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          q + ((size_t)b * H + kh * G + g) * HD + li * VEC);
-      to_f32<T>(raw, qr[g]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) qr[g][j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[g][j] = 0.f;
+// Token rows of the single-query kernel (flash_decode.cuh): token n of
+// sequence b is slot n % ps of page block_table[b][n / ps]; the null page
+// is never loaded and a chunk of null pages is skipped.
+struct PagedRows {
+  const int* bt;
+  int pmax, ps;
+  __device__ int ntok(int, int) const { return pmax * ps; }
+  __device__ bool live(int b, int c0, int c1) const {
+    return chunk_has_pages(bt, b, pmax, ps, c0, c1);
   }
-  float m_run = kNegInf, l_run = 0.f;  // owned by thread tid == g < G
-
-  for (int c0 = 0; c0 < ntok; c0 += kChunk) {
-    if (!chunk_has_pages(block_table, b, pmax, ps, c0, min(c0 + kChunk, ntok)))
-      continue;
-    // issue every K and V load of this group's tokens before using any
-    uint4 kr[TPG], vr[TPG];
-    bool ok[TPG];
-#pragma unroll
-    for (int i = 0; i < TPG; ++i) {
-      const int n = c0 + grp + i * NGRP;
-      kr[i] = make_uint4(0, 0, 0, 0);
-      vr[i] = make_uint4(0, 0, 0, 0);
-      ok[i] = false;
-      if (n < ntok) {
-        const int pid = block_table[b * pmax + n / ps];
-        if (pid != 0) {
-          const size_t slot = (size_t)pid * ps + n % ps;
-          if (key_valid(kpos_pages[slot], qp, window)) {
-            ok[i] = true;
-            const size_t off = (slot * KH + kh) * HD + li * VEC;
-            kr[i] = *reinterpret_cast<const uint4*>(k_pages + off);
-            vr[i] = *reinterpret_cast<const uint4*>(v_pages + off);
-          }
-        }
-      }
-    }
-    // scores: G dot products per token, reduced over the group's lanes
-#pragma unroll
-    for (int i = 0; i < TPG; ++i) {
-      float kf[VEC];
-      to_f32<T>(kr[i], kf);
-      float s[GMAX];
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        s[g] = 0.f;
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) s[g] = fmaf(qr[g][j], kf[j], s[g]);
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off /= 2)
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g)
-          s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
-      if (li == 0) {
-        const int t = grp + i * NGRP;
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g)
-          if (g < G) s_sm[g][t] = ok[i] ? cap_score(s[g] * scale, softcap)
-                                        : kNegInf;
-        valid_sm[t] = ok[i];
-      }
-    }
-    __syncthreads();
-    // online softmax statistics, one thread per query head
-    if (tid < G) {
-      const int g = tid;
-      float mx = m_run;
-      for (int t = 0; t < kChunk; ++t)
-        if (valid_sm[t]) mx = fmaxf(mx, s_sm[g][t]);
-      float sum = 0.f;
-      for (int t = 0; t < kChunk; ++t) {
-        const float p = valid_sm[t] ? expf(s_sm[g][t] - mx) : 0.f;
-        p_sm[g][t] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_run - mx);
-      l_run = l_run * alpha + sum;
-      m_run = mx;
-      alpha_sm[g] = alpha;
-    }
-    __syncthreads();
-    // rescale and accumulate P @ V over this group's tokens
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g < G) {
-        const float a = alpha_sm[g];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[g][j] *= a;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TPG; ++i) {
-      if (!ok[i]) continue;
-      const int t = grp + i * NGRP;
-      float vf[VEC];
-      to_f32<T>(vr[i], vf);
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g < G) {
-          const float p = p_sm[g][t];
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) acc[g][j] = fmaf(p, vf[j], acc[g][j]);
-        }
-      }
-    }
+  __device__ long long slot(int b, int n) const {
+    const int pid = bt[b * pmax + n / ps];
+    return pid != 0 ? (long long)pid * ps + n % ps : -1;
   }
-
-  // sum the groups' partial accumulators, one query head at a time
-  if (tid < G) l_sm[tid] = l_run;
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g >= G) break;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) red[grp * HD + li * VEC + j] = acc[g][j];
-    __syncthreads();
-    const float l = fmaxf(l_sm[g], 1e-30f);
-    for (int d = tid; d < HD; d += kThreads) {
-      float sum = 0.f;
-#pragma unroll
-      for (int gi = 0; gi < NGRP; ++gi) sum += red[gi * HD + d];
-      store_out(out + ((size_t)b * H + kh * G + g) * HD + d, sum / l);
-    }
-  }
-}
+};
 
 // ---------------------------------------------------------------------------
 // T queries per sequence: one block per (tile of kRows query rows, KV head,
@@ -457,24 +271,6 @@ __global__ void __launch_bounds__(kThreads) paged_multi_kernel(
 }
 
 template <typename T, int HD>
-cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const int* kpos, const int* bt, const int* qpos,
-                          void* out, int B, int H, int KH, int ps, int pmax,
-                          float scale, int window, float softcap,
-                          cudaStream_t stream) {
-  const dim3 grid(KH, B);
-  if (H / KH <= 4)
-    paged_decode_kernel<T, HD, 4><<<grid, kThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, kpos, bt, qpos, (T*)out, H, KH,
-        ps, pmax, scale, window, softcap);
-  else
-    paged_decode_kernel<T, HD, 8><<<grid, kThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, kpos, bt, qpos, (T*)out, H, KH,
-        ps, pmax, scale, window, softcap);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD>
 cudaError_t launch_multi(const void* q, const void* k, const void* v,
                          const int* kpos, const int* bt, const int* qpos,
                          void* out, int B, int Tq, int H, int KH, int ps,
@@ -495,8 +291,9 @@ cudaError_t launch_multi(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim in {32, 64, 128}; H/KH <= 8 for
-// the single-query kernel. Shapes as in ref.py; all tensors contiguous.
+// dtype: 0 = float32, 1 = bfloat16. head_dim in {32, 64, 128, 256}; H/KH
+// <= 8 for the single-query kernel. Shapes as in ref.py; all tensors
+// contiguous.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* kpos_pages, const void* block_table, const void* q_pos,
@@ -504,20 +301,22 @@ extern "C" int paged_decode_attention_launch(
     float scale, int window, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kp = static_cast<const int*>(kpos_pages);
-  const int* bt = static_cast<const int*>(block_table);
+  const PagedRows rows{static_cast<const int*>(block_table), pmax, ps};
   const int* qp = static_cast<const int*>(q_pos);
   if (H % KH != 0 || H / KH > 8) return (int)cudaErrorInvalidValue;
-#define DEC(T, HD)                                                          \
-  return (int)launch_decode<T, HD>(q, k_pages, v_pages, kp, bt, qp, out, B, \
-                                   H, KH, ps, pmax, scale, window, softcap, s)
+#define DEC(T, HD)                                                         \
+  return (int)launch_decode<T, HD>(q, k_pages, v_pages, kp, rows, qp, out, \
+                                   B, H, KH, scale, window, softcap, s)
   if (dtype == 0) {
     if (hd == 32) DEC(float, 32);
     if (hd == 64) DEC(float, 64);
     if (hd == 128) DEC(float, 128);
+    if (hd == 256) DEC(float, 256);
   } else if (dtype == 1) {
     if (hd == 32) DEC(__nv_bfloat16, 32);
     if (hd == 64) DEC(__nv_bfloat16, 64);
     if (hd == 128) DEC(__nv_bfloat16, 128);
+    if (hd == 256) DEC(__nv_bfloat16, 256);
   }
 #undef DEC
   return (int)cudaErrorInvalidValue;
@@ -541,10 +340,12 @@ extern "C" int paged_decode_attention_multi_launch(
     if (hd == 32) MULTI(float, 32);
     if (hd == 64) MULTI(float, 64);
     if (hd == 128) MULTI(float, 128);
+    if (hd == 256) MULTI(float, 256);
   } else if (dtype == 1) {
     if (hd == 32) MULTI(__nv_bfloat16, 32);
     if (hd == 64) MULTI(__nv_bfloat16, 64);
     if (hd == 128) MULTI(__nv_bfloat16, 128);
+    if (hd == 256) MULTI(__nv_bfloat16, 256);
   }
 #undef MULTI
   return (int)cudaErrorInvalidValue;

@@ -1,0 +1,71 @@
+"""ctypes binding of the slot-cache flash-decode CUDA kernel.
+
+The kernel (``csrc/decode_attention.cu``) replaces the reference package's
+Pallas TPU kernel ``decode_attention``: one query per sequence over a
+contiguous or ring (sliding-window) slot cache with explicit per-slot
+positions. ``decode_attention`` checks its tensors, allocates the output
+with ``torch.empty``, launches on the current CUDA stream, raises if the
+launch was refused, and counts the launch in ``build.launches``. The
+library builds at the first launch (see ``build.py``). Shapes and
+semantics are those of ``ref.decode_attention_ref``; with ``window=0``
+the kernel reads slots ``0..q_pos`` only, which is exact for caches
+written by ``models.attention.cache_write`` (position p in slot p).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_HEAD_DIMS = (32, 64, 128, 256)
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        _lib = build.bind("decode_attention", {
+            "decode_attention_launch":
+                [ptr] * 6 + [i32] * 6 + [f32, i32, f32, ptr]})
+    return _lib
+
+
+def decode_attention(q, k, v, kpos, q_pos, *, window: int = 0,
+                     softcap: float = 0.0):
+    """Launch the kernel. q: (B,H,hd); k/v: (B,M,KH,hd); kpos: (B,M) int32;
+    q_pos: (B,) int32 -> (B,H,hd) in q's dtype."""
+    build.check_on_card(q.device, q=q, k=k, v=v, kpos=kpos, q_pos=q_pos)
+    if q.dtype not in build.DTYPE_CODE:
+        raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"k/v dtypes {k.dtype}/{v.dtype} != q dtype {q.dtype}")
+    if kpos.dtype != torch.int32 or q_pos.dtype != torch.int32:
+        raise TypeError("kpos and q_pos must be int32")
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"bad ranks: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    B, H, hd = q.shape
+    M, KH = k.shape[1], k.shape[2]
+    if (k.shape != (B, M, KH, hd) or v.shape != k.shape
+            or kpos.shape != (B, M) or q_pos.shape != (B,)):
+        raise ValueError("inconsistent shapes: q %s, k/v %s/%s, kpos %s, "
+                         "q_pos %s" % (tuple(q.shape), tuple(k.shape),
+                                       tuple(v.shape), tuple(kpos.shape),
+                                       tuple(q_pos.shape)))
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not supported {_HEAD_DIMS}")
+    if H % KH or H // KH > 8:
+        raise ValueError(f"num_heads {H} must be 1-8 times num_kv_heads {KH}")
+    out = torch.empty_like(q)
+    lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
+        q_pos.data_ptr(), out.data_ptr(), build.DTYPE_CODE[q.dtype], B, H,
+        KH, hd, M, hd ** -0.5, int(window), float(softcap), stream)
+    build.raise_on(err, "decode_attention")
+    build.launches["decode_attention"] += 1
+    return out

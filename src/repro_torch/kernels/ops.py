@@ -9,11 +9,23 @@ back from a kernel to its plain version. The kernels' launch counts are
 
 from __future__ import annotations
 
+from repro_torch.kernels import build, ref
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import paged_decode_attention as _paged
-from repro_torch.kernels import ref
+from repro_torch.kernels import probe as _probe
 
-launches = _paged.launches
-reset_launches = _paged.reset_launches
+launches = build.launches
+reset_launches = build.reset_launches
+
+
+def decode_attention(q, k, v, kpos, q_pos, *, window=0, softcap=0.0):
+    """Single-step decode attention against a contiguous or ring slot
+    cache."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, kpos, q_pos, window=window,
+                                        softcap=softcap)
+    return _dec.decode_attention(q, k, v, kpos, q_pos, window=window,
+                                 softcap=softcap)
 
 
 def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
@@ -39,3 +51,11 @@ def paged_decode_attention_multi(q, k_pages, v_pages, kpos_pages,
     return _paged.paged_decode_attention_multi(
         q, k_pages, v_pages, kpos_pages, block_table, q_pos, window=window,
         softcap=softcap)
+
+
+def probe_update(tap, w1, b1, w2, b2, q_prev, T):
+    """Fused TRAIL probe step: probe MLP, softmax and one Bayes-filter
+    step. Returns (q_new, p), both float32."""
+    if tap.device.type == "cpu":
+        return ref.probe_update_ref(tap, w1, b1, w2, b2, q_prev, T)
+    return _probe.probe_update(tap, w1, b1, w2, b2, q_prev, T)

@@ -5,7 +5,8 @@ package's Pallas TPU kernels ``paged_decode_attention`` and
 ``paged_decode_attention_multi``. Each function here checks its tensors,
 allocates the output with ``torch.empty``, launches on the current CUDA
 stream, raises if the launch was refused, and counts the launch in
-``launches``. The library builds at the first launch (see ``build.py``).
+``build.launches``. The library builds at the first launch (see
+``build.py``).
 Shapes and semantics are those of ``ref.py``.
 """
 
@@ -17,32 +18,19 @@ import torch
 
 from repro_torch.kernels import build
 
-#: kernel launches since the last ``reset_launches()``, keyed by kernel
-launches = {"paged_decode_attention": 0, "paged_decode_attention_multi": 0}
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 _lib = None
-
-
-def reset_launches() -> None:
-    """Set every launch count to 0."""
-    for name in launches:
-        launches[name] = 0
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = build.load("paged_decode_attention")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_decode_attention_launch.argtypes = (
-            [ptr] * 7 + [i32] * 7 + [f32, i32, f32, ptr])
-        lib.paged_decode_attention_launch.restype = i32
-        lib.paged_decode_attention_multi_launch.argtypes = (
-            [ptr] * 7 + [i32] * 8 + [f32, i32, f32, ptr])
-        lib.paged_decode_attention_multi_launch.restype = i32
-        _lib = lib
+        _lib = build.bind("paged_decode_attention", {
+            "paged_decode_attention_launch":
+                [ptr] * 7 + [i32] * 7 + [f32, i32, f32, ptr],
+            "paged_decode_attention_multi_launch":
+                [ptr] * 7 + [i32] * 8 + [f32, i32, f32, ptr]})
     return _lib
 
 
@@ -50,16 +38,8 @@ def _check(q, k_pages, v_pages, kpos_pages, block_table, q_pos, q_ndim):
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages,
                    kpos_pages=kpos_pages, block_table=block_table,
                    q_pos=q_pos)
-    dev = q.device
-    for name, t in tensors.items():
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{name} must lie on the CUDA device of q "
-                             f"({dev}), not {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    if q.dtype not in _DTYPE_CODE:
+    build.check_on_card(q.device, **tensors)
+    if q.dtype not in build.DTYPE_CODE:
         raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16)")
     for name in ("k_pages", "v_pages"):
         if tensors[name].dtype != q.dtype:
@@ -87,11 +67,6 @@ def _check(q, k_pages, v_pages, kpos_pages, block_table, q_pos, q_ndim):
     return B, H, KH, hd, ps, block_table.shape[1]
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
                            q_pos, *, window: int = 0, softcap: float = 0.0):
     """Launch the single-query kernel. q: (B,H,hd) -> (B,H,hd) in q's dtype."""
@@ -105,10 +80,10 @@ def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         kpos_pages.data_ptr(), block_table.data_ptr(), q_pos.data_ptr(),
-        out.data_ptr(), _DTYPE_CODE[q.dtype], B, H, KH, hd, ps, pmax,
+        out.data_ptr(), build.DTYPE_CODE[q.dtype], B, H, KH, hd, ps, pmax,
         hd ** -0.5, int(window), float(softcap), stream)
-    _raise_on(err, "paged_decode_attention")
-    launches["paged_decode_attention"] += 1
+    build.raise_on(err, "paged_decode_attention")
+    build.launches["paged_decode_attention"] += 1
     return out
 
 
@@ -125,8 +100,8 @@ def paged_decode_attention_multi(q, k_pages, v_pages, kpos_pages,
     err = lib.paged_decode_attention_multi_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         kpos_pages.data_ptr(), block_table.data_ptr(), q_pos.data_ptr(),
-        out.data_ptr(), _DTYPE_CODE[q.dtype], B, T, H, KH, hd, ps, pmax,
+        out.data_ptr(), build.DTYPE_CODE[q.dtype], B, T, H, KH, hd, ps, pmax,
         hd ** -0.5, int(window), float(softcap), stream)
-    _raise_on(err, "paged_decode_attention_multi")
-    launches["paged_decode_attention_multi"] += 1
+    build.raise_on(err, "paged_decode_attention_multi")
+    build.launches["paged_decode_attention_multi"] += 1
     return out

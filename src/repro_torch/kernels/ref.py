@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.predictor import apply_probe
+from repro_torch.core.smoothing import bayes_update
+
 NEG_INF = -2.0 ** 30    # large-negative instead of -inf: keeps softmax NaN-free
 
 
@@ -96,3 +99,12 @@ def paged_decode_attention_multi_ref(q, k_pages, v_pages, kpos_pages,
     out = torch.einsum("bkgtm,bmkh->btkgh", _masked_softmax(scores, vmask),
                        v.float())
     return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def probe_update_ref(tap, w1, b1, w2, b2, q_prev, T):
+    """Fused probe + Bayes filter. tap: (B,d); w1: (d,hid); w2: (hid,k);
+    q_prev: (B,k); T: (k,k). Returns (q_new (B,k), p (B,k) the probe's
+    softmax), both float32."""
+    p = torch.softmax(apply_probe({"w1": w1, "b1": b1, "w2": w2, "b2": b2},
+                                  tap), dim=-1)
+    return bayes_update(q_prev.float(), p, T), p

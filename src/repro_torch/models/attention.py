@@ -1,18 +1,29 @@
-"""Attention: GQA with position-based masking, over a paged KV pool.
+"""Attention: GQA with position-based masking, over slot or paged caches.
 
 Ported from the reference ``repro.models.attention``. All masks derive from
 absolute positions: query positions ``q_pos`` (B, S) and key positions
-``pkpos``, -1 marking an inactive query or an empty slot. Causality is
-``k_pos <= q_pos``.
+``kpos``/``pkpos``, -1 marking an inactive query or an empty slot.
+Causality is ``k_pos <= q_pos``; sliding windows add ``k_pos > q_pos - W``,
+so ring-buffer caches need no special-case masking: the stored position of
+an overwritten slot simply moves forward.
 
-The paged cache holds K/V in a pool of fixed-size pages shared by every
-sequence and addressed through a (B, pmax) block table; physical page 0 is
-the null page, whose ``pkpos`` stays -1. Unlike the reference, which
-returns a new cache, ``paged_cache_write`` updates the pool in place
-(``index_copy_``): a full-size pool is gigabytes and must not be copied
-per layer. Attention itself always goes through ``repro_torch.kernels.ops``:
-the CUDA kernels for tensors on the card, their plain versions
-(``kernels/ref.py``) for tensors on the CPU.
+Two cache layouts:
+
+* slot caches (``k``/``v``/``kpos``), one row of slots per sequence: the
+  contiguous layout (slot = position) and the rings of sliding-window
+  layers (slot = position % ring, under either engine layout);
+* the paged cache (``pk``/``pv``/``pkpos``): K/V in a pool of fixed-size
+  pages shared by every sequence and addressed through a (B, pmax) block
+  table; physical page 0 is the null page, whose ``pkpos`` stays -1.
+
+Unlike the reference, which returns a new cache, ``cache_write`` and
+``paged_cache_write`` update the cache in place (``index_copy_``): a
+full-size cache is gigabytes and must not be copied per layer. Decode
+attention and the paged prefill attention go through
+``repro_torch.kernels.ops`` (the CUDA kernels for tensors on the card,
+their plain versions in ``kernels/ref.py`` on the CPU). The prefill chunk
+of a slot cache attends with ``attend`` in plain torch, as the reference
+does outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, cdtype
 
 
@@ -44,6 +56,199 @@ def project_qkv(cfg: ModelConfig, p, hq: torch.Tensor, hkv=None):
     v = v.reshape(B, hkv.shape[1], cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
 
+
+# ---------------------------------------------------------------------------
+# Core attention with position masks (plain torch)
+# ---------------------------------------------------------------------------
+
+ATTEND_BLOCK_K = 1024          # KV block for the online-softmax path
+ATTEND_DENSE_LIMIT = 1 << 24   # use dense scores below S*M of ~16M elements
+
+
+def _mask(q_pos, k_pos, window: int, causal: bool):
+    """(B,1,1,S,M) validity of key positions for query positions."""
+    kp = k_pos[:, None, None, None, :]
+    qp = q_pos[:, None, None, :, None]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window:
+        valid = valid & (kp > qp - window)
+    return valid
+
+
+def _scores(cfg: ModelConfig, qg, k, scale: float):
+    """Scaled, soft-capped float32 scores (B,KH,G,S,M), computed in place
+    after the product to keep one (S, M) buffer per step."""
+    s = torch.einsum("bskgh,bmkh->bkgsm", qg, k.float()).mul_(scale)
+    if cfg.attn_logit_softcap:
+        cap = cfg.attn_logit_softcap
+        s.div_(cap).tanh_().mul_(cap)
+    return s
+
+
+def attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, window: int = 0,
+           causal: bool = True):
+    """q: (B,S,H,hd); k/v: (B,M,KH,hd); q_pos: (B,S); k_pos: (B,M).
+
+    Returns (B,S,H,hd) in q's dtype. float32 softmax; GQA via head
+    grouping; a query with nothing valid comes out as 0. Large S*M takes
+    the blocked online-softmax path (O(S*block) memory instead of O(S*M);
+    same semantics).
+    """
+    S, M = q.shape[1], k.shape[1]
+    if S * M > ATTEND_DENSE_LIMIT and M > ATTEND_BLOCK_K:
+        return _attend_blocked(cfg, q, k, v, q_pos, k_pos, window=window,
+                               causal=causal)
+    return _attend_dense(cfg, q, k, v, q_pos, k_pos, window=window,
+                         causal=causal)
+
+
+def _attend_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, window: int,
+                  causal: bool):
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    qg = q.reshape(B, S, KH, H // KH, hd).float()
+    valid = _mask(q_pos, k_pos, window, causal)
+    s = _scores(cfg, qg, k, hd ** -0.5).masked_fill_(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = s.sub_(m).exp_().masked_fill_(~valid, 0.0)
+    p.div_(p.sum(dim=-1, keepdim=True).clamp_min_(1e-30))
+    out = torch.einsum("bkgsm,bmkh->bskgh", p, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _attend_blocked(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, window: int,
+                    causal: bool, block: int = ATTEND_BLOCK_K):
+    B, S, H, hd = q.shape
+    M, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, S, KH, G, hd).float()
+    m_run = torch.full((B, KH, G, S), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros((B, KH, G, S, hd), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, M, block):
+        kc, vc = k[:, c0:c0 + block], v[:, c0:c0 + block]
+        valid = _mask(q_pos, k_pos[:, c0:c0 + block], window, causal)
+        s = _scores(cfg, qg, kc, hd ** -0.5).masked_fill_(~valid, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = s.sub_(m_new[..., None]).exp_().masked_fill_(~valid, 0.0)
+        alpha = torch.exp(m_run - m_new)
+        l_run = l_run * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgsm,bmkh->bkgsh", p, vc.float())
+        m_run = m_new
+    out = acc / l_run.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Self-attention over a slot cache (prefill chunk / decode)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                  window: int = 0, device="cuda") -> dict:
+    """A stacked slot cache for a run of ``n_layers`` identical layers.
+
+    Each row holds ``min(window, max_len)`` ring slots for a windowed
+    layer, else ``max_len`` slots, plus one sink slot at the end: the
+    writes that the reference drops land there (see ``cache_write``), and
+    its ``kpos`` stays -1, so it is never attended.
+    """
+    if cfg.kv_quant:
+        raise NotImplementedError("kv_quant is not ported")
+    slots = min(window, max_len) if window else max_len
+    shape = (n_layers, batch, slots + 1, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "kpos": torch.full(shape[:3], -1, dtype=torch.int32, device=device),
+        "k": torch.zeros(shape, dtype=cdtype(cfg), device=device),
+        "v": torch.zeros(shape, dtype=cdtype(cfg), device=device),
+    }
+
+
+def cache_write(cache_l: dict, k_new, v_new, positions, window: int):
+    """Write S new entries per sequence into one layer's slot cache, in place.
+
+    cache_l: {"k": (B,slots+1,KH,hd), "v": ..., "kpos": (B,slots+1)};
+    k_new/v_new: (B,S,KH,hd); positions: (B,S) absolute (-1 = inactive).
+    Position p goes to slot ``p % slots`` when windowed (a ring), else to
+    slot p. As in the reference (``mode="drop"``), inactive positions and,
+    without a window, positions past the last slot are not written; and
+    where several entries of one call map to the same slot (a chunk longer
+    than the ring) the last one wins. Both hold without a host
+    synchronisation and deterministically on the card, where
+    ``index_copy_`` gives duplicate indices no defined winner: every entry
+    that must not land, dropped or overtaken, is sent to the row's sink
+    slot (index ``slots``) with position -1, so the sink's ``kpos`` stays
+    -1 and its K/V, whichever entry wins there, are never attended. The
+    last entry per slot is found with a ``scatter_reduce`` of ``amax`` over
+    the entry index, which has one answer.
+    """
+    k, v, kpos = cache_l["k"], cache_l["v"], cache_l["kpos"]
+    B, M, KH, hd = k.shape
+    slots = M - 1
+    S = positions.shape[1]
+    ok = positions >= 0
+    if window:
+        slot = positions % slots
+    else:
+        slot = positions
+        ok = ok & (positions < slots)
+    slot = torch.where(ok, slot, slots).long()
+    if S > 1:
+        src = torch.arange(S, device=slot.device).expand(B, S)
+        last = torch.full((B, M), -1, dtype=torch.long, device=slot.device)
+        last.scatter_reduce_(1, slot, src, "amax")
+        ok = ok & (last.gather(1, slot) == src)
+        slot = torch.where(ok, slot, slots)
+    rows = torch.arange(B, device=slot.device)[:, None] * M
+    flat = (rows + slot).reshape(-1)
+    for cache, new in ((k, k_new), (v, v_new)):
+        cache.view(B * M, KH, hd).index_copy_(
+            0, flat, new.reshape(-1, KH, hd).to(cache.dtype))
+    kpos.view(B * M).index_copy_(
+        0, flat, torch.where(ok, positions, -1).reshape(-1).to(torch.int32))
+    return cache_l
+
+
+def self_attention_cached(cfg: ModelConfig, p, h, cache_l, q_pos, *,
+                          window: int = 0):
+    """One layer of cached self-attention over a slot cache.
+
+    h: (B,S,d); cache_l holds this layer's slots (updated in place); q_pos:
+    (B,S) absolute positions of the chunk tokens. Returns (out (B,S,d),
+    cache_l). Decode (S=1) writes the token first and attends over the
+    updated cache with the flash-decode kernel: a ring slot overwritten by
+    the new token held a position <= q_pos - window, already masked. A
+    prefill chunk attends over the pre-write cache plus the fresh in-chunk
+    K/V, then writes: writing first would let ring slots be overwritten by
+    later in-chunk tokens that earlier queries still need.
+    """
+    q, k, v = project_qkv(cfg, p, h)
+    if cfg.use_rope:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
+    B, S = h.shape[:2]
+    if S == 1:
+        cache_write(cache_l, k, v, q_pos, window)
+        out = ops.decode_attention(
+            q[:, 0].contiguous(), cache_l["k"], cache_l["v"], cache_l["kpos"],
+            q_pos[:, 0].contiguous(), window=window,
+            softcap=cfg.attn_logit_softcap)[:, None]
+        return out.reshape(B, S, cfg.q_dim) @ p.wo, cache_l
+    k_all = torch.cat([cache_l["k"], k.to(cache_l["k"].dtype)], dim=1)
+    v_all = torch.cat([cache_l["v"], v.to(cache_l["v"].dtype)], dim=1)
+    kpos_all = torch.cat([cache_l["kpos"], q_pos.to(torch.int32)], dim=1)
+    out = attend(cfg, q, k_all, v_all, q_pos, kpos_all, window=window)
+    cache_write(cache_l, k, v, q_pos, window)
+    return out.reshape(B, S, cfg.q_dim) @ p.wo, cache_l
+
+
+# ---------------------------------------------------------------------------
+# Paged self-attention (block-table indirection over a shared page pool)
+# ---------------------------------------------------------------------------
 
 def init_paged_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                         n_layers: int, device="cuda") -> dict:

@@ -5,15 +5,17 @@ and exposes the cached forward passes of the reference
 ``repro.models.model.Model``:
 
   init(seed)                               -> fills the parameters
-  init_cache(batch, max_len, "paged")      -> cache dict (paged KV pool)
+  init_cache(batch, max_len, kv_layout)    -> cache dict ("contig" slot
+                                              caches or "paged" KV pool)
   prefill_chunk(cache, tokens, valid)      -> (logits_last, cache, tap_sum, n_new)
   decode_step(cache, tokens, active)       -> (logits, cache, tap, probe_logits)
   decode_multi(cache, tokens, active, budget, k=, eos_id=)
                                            -> (tokens, cache, probe_probs, n_emitted)
 
 The parameters live on the model, so no method takes them. The cache is
-updated in place and also returned. Only ``KIND_ATTN`` stacks are ported
-so far: any other layer kind, ``kv_quant``, windows, cross-attention and
+updated in place and also returned. Global (``KIND_ATTN``) and
+sliding-window (``KIND_LOCAL``) attention stacks are ported, so the gemma
+configs run; any other layer kind, ``kv_quant``, cross-attention and
 prefix embeds raise ``NotImplementedError``.
 
 ``params_from_jax`` and ``load_npz`` bring the reference package's weights
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.config import KIND_ATTN, ModelConfig
+from repro_torch.config import ModelConfig
 from repro_torch.core import predictor
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, embed_tokens, pdtype,
@@ -35,11 +37,11 @@ from repro_torch.models.layers import (apply_norm, embed_tokens, pdtype,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.layer_kinds)
-    if kinds != {KIND_ATTN}:
+    kinds = set(cfg.layer_kinds) - set(tfm.PORTED_KINDS)
+    if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds - {KIND_ATTN})} are not "
-            "ported (only KIND_ATTN)")
+            f"{cfg.name}: layer kinds {sorted(kinds)} are not ported (only "
+            f"{', '.join(tfm.PORTED_KINDS)})")
     if cfg.kv_quant:
         raise NotImplementedError(f"{cfg.name}: kv_quant is not ported")
     if cfg.cross_attention or cfg.num_encoder_layers:
@@ -56,8 +58,9 @@ def _check_supported(cfg: ModelConfig) -> None:
 class Model(nn.Module):
     """Cached forward passes over one ``ModelConfig`` (see module docstring).
 
-    Paged attention goes through ``repro_torch.kernels.ops``: the CUDA
-    kernels for tensors on the card, their plain versions on the CPU.
+    Decode attention (both layouts) and paged prefill attention go through
+    ``repro_torch.kernels.ops``: the CUDA kernels for tensors on the card,
+    their plain versions on the CPU.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -129,25 +132,30 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # Cache
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, kv_layout: str = "paged",
+    def init_cache(self, batch: int, max_len: int, kv_layout: str = "contig",
                    page_size: int = 16) -> dict:
-        """A paged cache: 1 null page + batch * ceil(max_len/page_size) pages
-        behind a (batch, pages_per_seq) block table, K/V stacked per run."""
-        if kv_layout != "paged":
-            raise NotImplementedError(
-                f"kv_layout={kv_layout!r} is not ported (only 'paged')")
-        pages_per_seq = -(-max_len // page_size)
-        num_pages = 1 + batch * pages_per_seq          # page 0 = null page
-        cache: dict = {
-            "lengths": torch.zeros(batch, dtype=torch.int32,
-                                   device=self.device),
-            "block_table": torch.zeros((batch, pages_per_seq),
-                                       dtype=torch.int32, device=self.device),
-        }
+        """The per-run KV caches of ``batch`` sequences of ``max_len`` tokens.
+
+        ``contig``: one slot row per sequence and layer. ``paged``: the
+        global-attention K/V in a shared page pool (1 null page + batch *
+        ceil(max_len/page_size) pages) behind a (batch, pages_per_seq)
+        block table. Windowed layers keep their ring slots under either.
+        """
+        if kv_layout not in ("contig", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        cache: dict = {"lengths": torch.zeros(batch, dtype=torch.int32,
+                                              device=self.device)}
+        num_pages = 0
+        if kv_layout == "paged":
+            pages_per_seq = -(-max_len // page_size)
+            num_pages = 1 + batch * pages_per_seq      # page 0 = null page
+            cache["block_table"] = torch.zeros(
+                (batch, pages_per_seq), dtype=torch.int32, device=self.device)
         for ri, (kinds, nb) in enumerate(self.runs):
             cache[f"run_{ri}"] = tuple(
-                tfm.init_run_cache(self.cfg, kind, nb, num_pages, page_size,
-                                   device=self.device)
+                tfm.init_run_cache(self.cfg, kind, nb, batch, max_len,
+                                   kv_layout=kv_layout, num_pages=num_pages,
+                                   page_size=page_size, device=self.device)
                 for kind in kinds)
         return cache
 
@@ -156,11 +164,11 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def _trunk(self, cache: dict, h, q_pos):
         cfg = self.cfg
-        block_table = cache["block_table"]
+        block_table = cache.get("block_table")   # present when some run is paged
         tap = None
         for li, (blk, (ri, j, i)) in enumerate(zip(self.layers, self.slots)):
             sub = cache[f"run_{ri}"][j]
-            cache_l = {key: sub[key][i] for key in ("pk", "pv", "pkpos")}
+            cache_l = {key: leaf[i] for key, leaf in sub.items()}
             h, _ = tfm.block_cached(cfg, cfg.layer_kinds[li], blk, h, cache_l,
                                     q_pos, block_table)
             if li == self.tap_layer:
@@ -201,13 +209,8 @@ class Model(nn.Module):
         tap_sum = (tap.float() * valid[..., None].float()).sum(dim=1)
         return logits, cache, tap_sum, n_new
 
-    @torch.no_grad()
-    def decode_step(self, cache: dict, tokens, active=None):
-        """One iteration: generate-one-token for every active row.
-
-        tokens: (B,1) int; active: (B,) bool. Fuses the probe classifier.
-        Returns (logits (B,V) f32, cache, tap (B,d), probe_logits (B,k)).
-        """
+    def _decode(self, cache: dict, tokens, active):
+        """One decode step without the probe: (logits, cache, tap (B,d))."""
         cfg = self.cfg
         B = tokens.shape[0]
         if active is None:
@@ -218,8 +221,16 @@ class Model(nn.Module):
         h, tap = self._trunk(cache, h, q_pos)
         cache["lengths"] = lengths + active.to(torch.int32)
         hn = apply_norm(cfg, self.final_norm, h[:, 0])
-        logits = unembed(cfg, self._unembed_table(), hn)
-        tap = tap[:, 0]
+        return unembed(cfg, self._unembed_table(), hn), cache, tap[:, 0]
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens, active=None):
+        """One iteration: generate-one-token for every active row.
+
+        tokens: (B,1) int; active: (B,) bool. Fuses the probe classifier.
+        Returns (logits (B,V) f32, cache, tap (B,d), probe_logits (B,k)).
+        """
+        logits, cache, tap = self._decode(cache, tokens, active)
         return logits, cache, tap, predictor.apply_probe(self.probe, tap)
 
     @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Decoder blocks and run utilities (``KIND_ATTN`` layers).
+"""Decoder blocks and run utilities (``KIND_ATTN`` and ``KIND_LOCAL`` layers).
 
 A "run" is a maximal stretch of layers of one repeating pattern, split
 additionally at the probe tap so the tap always ends a run. The reference
@@ -12,11 +12,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.config import KIND_ATTN, ModelConfig
+from repro_torch.config import KIND_ATTN, KIND_LOCAL, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_norm, cdtype, gated_mlp, pdtype
 
 MAX_PATTERN = 8          # longest repeating block grouped as one run
+PORTED_KINDS = (KIND_ATTN, KIND_LOCAL)
 
 
 def _segment_runs(kinds: tuple[str, ...]) -> list[tuple[tuple[str, ...], int]]:
@@ -79,8 +80,16 @@ def layer_slots(cfg: ModelConfig) -> list[tuple[int, int, int]]:
     return slots
 
 
+def _kind_window(cfg: ModelConfig, kind: str) -> int:
+    """Attention window of a layer kind (0 = global attention)."""
+    return cfg.sliding_window if kind == KIND_LOCAL else 0
+
+
 class Block(nn.Module):
-    """One ``KIND_ATTN`` decoder block: RMSNorm, GQA attention, gated MLP.
+    """One decoder block: RMSNorm, GQA attention, gated MLP.
+
+    ``KIND_ATTN`` and ``KIND_LOCAL`` blocks hold the same parameters; a
+    local block attends within the config's sliding window.
 
     Matmul weights are held in the compute dtype, norm scales in the
     parameter dtype. Parameters are created empty; ``Model.init`` or
@@ -112,28 +121,42 @@ class Block(nn.Module):
 
 
 def block_cached(cfg: ModelConfig, kind: str, p: Block, h, cache_l, q_pos,
-                 block_table):
+                 block_table=None):
     """Cached-path block (prefill chunk or decode). Returns (h, cache_l).
 
     h: (B,S,d); q_pos: (B,S) absolute positions (-1 = inactive slot);
-    cache_l holds this layer's paged K/V, updated in place.
+    cache_l holds this layer's K/V, updated in place: a paged leaf set
+    (``pk``/``pv``/``pkpos``, read through ``block_table``) or a slot
+    cache (``k``/``v``/``kpos``, a ring for windowed layers).
     """
-    if kind != KIND_ATTN:
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    if "pk" not in cache_l:
-        raise NotImplementedError("only the paged KV layout is ported")
     hn = apply_norm(cfg, p.norm1, h)
-    a, cache_l = attn.self_attention_paged(cfg, p, hn, cache_l, q_pos,
-                                           block_table)
+    if "pk" in cache_l:
+        a, cache_l = attn.self_attention_paged(cfg, p, hn, cache_l, q_pos,
+                                               block_table)
+    else:
+        a, cache_l = attn.self_attention_cached(
+            cfg, p, hn, cache_l, q_pos, window=_kind_window(cfg, kind))
     h = h + a
     return h + gated_mlp(apply_norm(cfg, p.norm2, h), p.w_gate, p.w_up,
                          p.w_down), cache_l
 
 
-def init_run_cache(cfg: ModelConfig, kind: str, n_layers: int,
-                   num_pages: int, page_size: int, device="cuda") -> dict:
-    """Allocate the paged KV cache of one homogeneous layer run."""
-    if kind != KIND_ATTN:
+def init_run_cache(cfg: ModelConfig, kind: str, n_layers: int, batch: int,
+                   max_len: int, kv_layout: str = "contig",
+                   num_pages: int = 0, page_size: int = 0,
+                   device="cuda") -> dict:
+    """Allocate the KV cache of one homogeneous layer run.
+
+    Windowed runs keep their ring slots even under ``kv_layout="paged"``:
+    they are already bounded at the window, so paging buys nothing.
+    """
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    return attn.init_paged_kv_cache(cfg, num_pages, page_size, n_layers,
-                                    device=device)
+    window = _kind_window(cfg, kind)
+    if kv_layout == "paged" and not window:
+        return attn.init_paged_kv_cache(cfg, num_pages, page_size, n_layers,
+                                        device=device)
+    return attn.init_kv_cache(cfg, batch, max_len, n_layers, window=window,
+                              device=device)

@@ -1,7 +1,7 @@
 """Iteration-level serving engine (the paper's system, Figure 1).
 
 A copy of the reference ``repro.serving.engine`` host state machine, sim
-mode included; real mode drives the PyTorch model over the paged KV pool.
+mode included; real mode drives the PyTorch model over its KV caches.
 
 One engine iteration =
   1. admit new arrivals into the request pool (initial prompt-only
@@ -21,14 +21,14 @@ One engine iteration =
 
 Two execution modes:
   * real  — the PyTorch model (``repro_torch.models.model.Model``)
-            actually prefills/decodes on a fixed slot pool over the paged
-            KV layout (static shapes); probe predictions are real probe
-            outputs. Generation ends at the oracle length or EOS/max_new.
-            The decode hot path runs in megasteps: scheduler, page
-            allocation and cost model are consulted once per k tokens, the
-            host round-trip is O(B*k) token ids + probe posteriors (never
-            O(B*vocab) logits), and the KV pool is updated in place. The
-            engine clock stays the cost model's (a TPU v5e preset by
+            actually prefills/decodes on a fixed slot pool, over the
+            contiguous or the paged KV layout (static shapes, updated in
+            place); probe predictions are real probe outputs. Generation
+            ends at the oracle length or EOS/max_new. The decode hot path
+            runs in megasteps: scheduler, page allocation and cost model
+            are consulted once per k tokens, and the host round-trip is
+            O(B*k) token ids + probe posteriors (never O(B*vocab) logits).
+            The engine clock stays the cost model's (a TPU v5e preset by
             default): its latencies are not times measured on the card.
   * sim   — no device math; oracle-noise probe statistics; paper-scale
             models under the cost model (Figures 5-7 reproduction). Sim
@@ -98,7 +98,7 @@ class EngineConfig:
             (``provides_magnitude == False``) require an ordinal
             scheduling policy (``rank`` / ``fcfs`` / ``mlfq``).
         mode: ``sim`` (cost-model clock, oracle-noise probe) | ``real``
-            (the model actually prefills/decodes; paged layout only).
+            (the model actually prefills/decodes).
         hardware: roofline constants that drive the simulated clock.
         seed: seed for the engine's decode-token RNG (sim mode).
         deadline_s: default per-request completion deadline (seconds
@@ -1736,7 +1736,7 @@ def run_policy(cfg: ModelConfig, policy: str, requests, *, c_limit=0.8,
     knobs (``deadline_s`` / ``ttft_deadline_s`` / ``shed_watermark`` /
     ``admission_control``) and the tail knobs (``age_boost`` /
     ``age_delay_s`` / ``deadline_slack_s``) mirror `EngineConfig` and
-    default off. Real mode (``mode="real"``, ``kv_layout="paged"``) runs
+    default off. Real mode (``mode="real"``, either ``kv_layout``) runs
     ``model`` on ``device``: ``cuda`` unless the caller asks for ``cpu``.
     """
     spec = predictor if isinstance(predictor, str) else ""

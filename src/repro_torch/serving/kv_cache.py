@@ -5,9 +5,9 @@ uses torch tensors updated in place.
 
 Two layouts coexist behind the engine's ``kv_layout`` switch:
 
-* ``contig`` — a fixed pool of per-sequence slot caches. Its byte
-  accounting serves sim mode; the device-side :class:`SlotPool` is not
-  ported yet and raises ``NotImplementedError``.
+* ``contig`` — a fixed pool of per-sequence slot caches
+  (:class:`SlotPool`): each slot owns ``max_len`` cache rows per global
+  layer and a ring per sliding-window layer.
 
 * ``paged`` — :class:`BlockManager` + :class:`PagedSlotPool`: the KV store
   is a pool of fixed-size pages (``page_size`` tokens each) shared by all
@@ -652,14 +652,21 @@ class BlockManager:
 class SlotPool:
     """Host-side slot bookkeeping + device-side cache reset.
 
-    The contiguous slot cache is not ported yet: constructing one raises
-    ``NotImplementedError``. :class:`PagedSlotPool` shares the slot
-    bookkeeping below.
+    The device cache is ``model.init_cache(slots, max_len)`` (the
+    contiguous layout), updated in place. :class:`PagedSlotPool` shares
+    the slot bookkeeping and the reset below.
     """
 
     def __init__(self, model, slots: int, max_len: int):
-        raise NotImplementedError(
-            "the contiguous KV layout is not ported; use kv_layout='paged'")
+        self.model = model
+        self.cfg = model.cfg
+        self.n_slots = slots
+        self.max_len = max_len
+        self.cache = model.init_cache(slots, max_len)
+        self.device = self.cache["lengths"].device
+        self.slot_of: dict[int, int] = {}
+        self.free = list(range(slots))[::-1]
+        self._dirty: list[int] = []              # slots needing device reset
 
     # -- allocation ------------------------------------------------------
     def assign(self, rid: int) -> int:
@@ -676,13 +683,17 @@ class SlotPool:
         return slot
 
     def flush_resets(self):
-        """Apply pending slot resets on device: ``lengths`` of each dirty
-        slot back to 0, in place (one ``index_fill_``)."""
+        """Apply pending slot resets on device, in place: ``lengths`` of
+        each dirty slot back to 0 and every slot-cache ``kpos`` row of it
+        (contiguous caches and the rings of windowed layers) to -1, one
+        ``index_fill_`` per leaf, so that the slot's next request never
+        attends over its predecessor's K/V."""
         if not self._dirty:
             return
-        idx = torch.tensor(self._dirty, dtype=torch.long,
-                           device=self.cache["lengths"].device)
+        idx = torch.tensor(self._dirty, dtype=torch.long, device=self.device)
         self.cache["lengths"].index_fill_(0, idx, 0)
+        for sub in _layer_leaves(self.cache, "kpos"):
+            sub["kpos"].index_fill_(1, idx, -1)
         self._dirty.clear()
 
     # -- accounting --------------------------------------------------------
@@ -695,13 +706,14 @@ class SlotPool:
         return self.n_slots - len(self.free)
 
 
-def _paged_leaves(cache: dict):
-    """Every paged layer run's leaf dict (``pk``/``pv``/``pkpos``)."""
+def _layer_leaves(cache: dict, leaf: str):
+    """Every layer run's leaf dict that holds ``leaf`` (``kpos``: slot
+    caches; ``pkpos``: paged K/V)."""
     for key, run in cache.items():
         if key.startswith("run_"):
             for sub in run:
-                if "pkpos" in sub:
-                    yield key, sub
+                if leaf in sub:
+                    yield sub
 
 
 class PagedSlotPool(SlotPool):
@@ -709,8 +721,9 @@ class PagedSlotPool(SlotPool):
 
     Pages are addressed through per-slot block tables.
 
-    Slots carry the per-sequence state that cannot be paged (``lengths``);
-    the :class:`BlockManager` owns the page pool. With ``retain=True``
+    Slots carry the per-sequence state that cannot be paged (``lengths``,
+    the rings of windowed layers); the :class:`BlockManager` owns the page
+    pool. With ``retain=True``
     (pure-attention archs) a preempted request keeps its pages across
     release/assign — resumption re-points the new slot's block-table row
     at them and restores ``lengths``, so decode continues over the
@@ -884,14 +897,14 @@ class PagedSlotPool(SlotPool):
         self._dirty_pages.extend(self.blocks.pop_resets())
         if self._dirty_pages:
             idx = self._index(self._dirty_pages)
-            for _, sub in _paged_leaves(self.cache):
+            for sub in _layer_leaves(self.cache, "pkpos"):
                 sub["pkpos"].index_fill_(1, idx, -1)
             self._dirty_pages.clear()
         cow = self.blocks.pop_cow_copies()
         if cow:
             src = self._index([s for s, _ in cow])
             dst = self._index([d for _, d in cow])
-            for _, sub in _paged_leaves(self.cache):
+            for sub in _layer_leaves(self.cache, "pkpos"):
                 for leaf in ("pk", "pv", "pkpos"):
                     sub[leaf].index_copy_(1, dst,
                                           sub[leaf].index_select(1, src))

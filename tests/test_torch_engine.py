@@ -2,10 +2,12 @@
 
 Sim mode: ``EngineStats.summary()`` is equal between ``repro`` and
 ``repro_torch`` (the host state machine, scheduler, cost model and
-predictors are copies). Real mode, paged layout, float32 smoke config:
-every request generates the same tokens and the engines book the same
-preemptions, at ``probe_interval`` 1 and 4, under a memory budget tight
-enough to preempt. The port's own real-mode invariants run on the CPU.
+predictors are copies). Real mode, float32 smoke configs (trail-llama,
+granite, and gemma2 with its sliding-window rings), under the paged and
+the contiguous layout: every request generates the same tokens and the
+engines book the same preemptions, recomputed and prefilled tokens,
+under a memory budget tight enough to preempt. The port's own real-mode
+invariants run on the CPU.
 """
 
 import dataclasses
@@ -98,11 +100,9 @@ def test_byte_accounting_is_equal(arch):
 
 
 @functools.lru_cache(maxsize=None)
-def models():
-    cfg = dataclasses.replace(get_smoke_config("trail-llama"),
-                              dtype="float32")
-    pcfg = dataclasses.replace(port_smoke_config("trail-llama"),
-                               dtype="float32")
+def models(arch="trail-llama"):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    pcfg = dataclasses.replace(port_smoke_config(arch), dtype="float32")
     # the reference's plain attention path compiles much faster on the CPU
     # than its Pallas kernels in interpret mode, and computes the same
     jm = JaxModel(cfg, use_kernels=False)
@@ -117,28 +117,38 @@ WORKLOAD = dict(n_requests=10, request_rate=3000.0, seed=2, prompt_mean=10.0,
                 out_median=12.0, max_out=24)
 
 
-def knobs(cfg, probe_interval):
+def knobs(cfg, probe_interval, kv_layout="paged"):
+    budget = (jax_kv.paged_bytes_for_context(cfg, 24, 8)
+              if kv_layout == "paged" else jax_kv.bytes_for_context(cfg, 24))
     return dict(policy="trail", max_batch=2, c_limit=1.0, mode="real",
-                kv_layout="paged", probe_interval=probe_interval,
+                kv_layout=kv_layout, probe_interval=probe_interval,
                 max_len=48, page_size=8, prefill_chunk=16,
-                mem_budget=3 * jax_kv.paged_bytes_for_context(cfg, 24, 8))
+                mem_budget=3 * budget)
 
 
-@pytest.mark.parametrize("probe_interval", [1, 4])
-def test_real_mode_matches_jax(probe_interval):
-    cfg, jm, params, pcfg, tm = models()
+@pytest.mark.parametrize("arch,kv_layout,probe_interval", [
+    pytest.param("trail-llama", "paged", 1, id="1"),
+    pytest.param("trail-llama", "paged", 4, id="4"),
+    pytest.param("granite-3-8b", "paged", 4, id="granite-3-8b-paged"),
+    pytest.param("granite-3-8b", "contig", 4, id="granite-3-8b-contig"),
+    pytest.param("gemma2-9b", "paged", 4, id="gemma2-9b-paged"),
+    pytest.param("gemma2-9b", "contig", 4, id="gemma2-9b-contig"),
+])
+def test_real_mode_matches_jax(arch, kv_layout, probe_interval):
+    cfg, jm, params, pcfg, tm = models(arch)
     jreqs = jax_workload.generate(jax_workload.WorkloadConfig(
         vocab=cfg.vocab_size, **WORKLOAD))
     preqs = port_workload.generate(port_workload.WorkloadConfig(
         vocab=cfg.vocab_size, **WORKLOAD))
+    kn = knobs(cfg, probe_interval, kv_layout)
     jeng = jax_engine.Engine(
-        cfg, jax_engine.EngineConfig(**knobs(cfg, probe_interval)),
+        cfg, jax_engine.EngineConfig(**kn),
         predictor=jax_predictors.ProbePredictor(
             cfg.probe, probe_params=params["probe"],
             embed_table=params["embed"]),
         model=jm, params=params)
     peng = port_engine.Engine(
-        pcfg, port_engine.EngineConfig(**knobs(cfg, probe_interval)),
+        pcfg, port_engine.EngineConfig(**kn),
         predictor=port_predictors.ProbePredictor(
             pcfg.probe, probe_params=tm.probe, embed_table=tm.embed),
         model=tm, device="cpu")
@@ -258,10 +268,45 @@ def test_paged_pool_export_import_and_cow_in_place():
 
 
 def test_real_mode_needs_the_paged_layout_and_the_model_device():
+    """Real mode now runs on either layout (the contiguous one is the
+    default); the model must live on the engine's device, and a model of
+    an unported layer kind cannot be built."""
     _, _, _, pcfg, tm = models()
-    with pytest.raises(NotImplementedError):
-        port_engine.Engine(pcfg, port_engine.EngineConfig(mode="real"),
-                           model=tm, device="cpu")
+    eng = port_engine.Engine(pcfg, port_engine.EngineConfig(mode="real"),
+                             model=tm, device="cpu")
+    assert type(eng.pool) is port_kv.SlotPool
+    assert "block_table" not in eng.pool.cache
     with pytest.raises(ValueError):
         port_engine.Engine(pcfg, port_engine.EngineConfig(
             mode="real", kv_layout="paged"), model=tm, device="cuda")
+    with pytest.raises(NotImplementedError):
+        Model(port_smoke_config("mamba2-370m"), device="cpu")
+
+
+@pytest.mark.parametrize("kv_layout", ["contig", "paged"])
+def test_slot_reset_clears_kpos(kv_layout):
+    """A released slot's positions go back to -1 on the next flush (the
+    contiguous rows and the rings of windowed layers, under both
+    layouts), so its next request never attends over the old K/V; other
+    slots keep theirs."""
+    _, _, _, pcfg, tm = models("gemma2-9b")
+    pool = (port_kv.SlotPool(tm, 3, 32) if kv_layout == "contig" else
+            port_kv.PagedSlotPool(tm, 3, 32, page_size=8))
+    for rid in (10, 11, 12):
+        pool.assign(rid)
+        if kv_layout == "paged":
+            pool.ensure_pages(rid, 24)
+    pool.flush_resets()
+    tokens = torch.arange(3 * 24, dtype=torch.int32).reshape(3, 24) % 500 + 1
+    tm.prefill_chunk(pool.cache, tokens)
+    leaves = [sub for key, run in pool.cache.items()
+              if key.startswith("run_") for sub in run if "kpos" in sub]
+    assert leaves and all(torch.all(sub["kpos"][:, :, :16] >= 0)
+                          for sub in leaves)
+    slot = pool.release(11)
+    pool.flush_resets()
+    assert int(pool.cache["lengths"][slot]) == 0
+    for sub in leaves:
+        assert torch.all(sub["kpos"][:, slot] == -1)
+        others = [s for s in range(3) if s != slot]
+        assert torch.all(sub["kpos"][:, others, :16] >= 0)

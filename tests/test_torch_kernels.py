@@ -1,12 +1,13 @@
-"""The port's paged flash-decode kernels against the reference.
+"""The port's kernels against the reference: paged and slot-cache
+flash-decode, and the fused probe step.
 
 On the CPU the port's wrappers (``repro_torch.kernels.ops``) run the plain
 PyTorch versions; they are held against the JAX package's ``ref.py`` and
 its Pallas kernels in interpret mode on the same inputs, made with numpy
 from a fixed seed. The sweep mirrors ``tests/test_kernels.py`` and adds a
-query group of 3, null pages and inactive (q_pos = -1) rows. The
-``cuda``-marked case holds each CUDA kernel against its plain version and
-skips where there is no card.
+query group of 3, null pages, wrapped rings and inactive (q_pos = -1)
+rows. The ``cuda``-marked cases hold each CUDA kernel against its plain
+version and skip where there is no card.
 
 The interpret-mode Pallas kernels (slow to compile) are run for every
 float32 case and for the bfloat16 cases with inactive rows; every case
@@ -14,7 +15,8 @@ is held against the reference ``ref.py``.
 
 Tolerance: ``TOL`` of ``tests/test_kernels.py`` (max absolute error,
 2e-5 in float32, 2e-2 in bfloat16 — one bf16 rounding of an O(1) output),
-floored at 1e-4 as there.
+floored at 1e-4 as there. The probe's outputs are probabilities: 1e-5
+absolute, as float32 sums over d and hidden are taken in another order.
 """
 
 import types
@@ -35,12 +37,16 @@ def jx():
     run where JAX is not installed."""
     jax = pytest.importorskip("jax")
     from repro.kernels import ref
+    from repro.kernels.decode_attention import decode_attention
     from repro.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_multi)
+    from repro.kernels.probe import probe_update
     static = ("window", "softcap")
     return types.SimpleNamespace(
         jnp=jax.numpy, pallas_single=paged_decode_attention,
         pallas_multi=paged_decode_attention_multi,
+        pallas_decode=decode_attention, pallas_probe=probe_update,
+        ref_decode=jax.jit(ref.decode_attention_ref, static_argnames=static),
         # the reference oracles, compiled once per shape (eager is slower)
         ref_single=jax.jit(ref.paged_decode_attention_ref,
                            static_argnames=static),
@@ -190,7 +196,8 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,H,KH,hd", [(1, 32, 8, 128), (1, 12, 4, 64),
-                                       (8, 32, 8, 128), (40, 12, 4, 64)])
+                                       (8, 32, 8, 128), (40, 12, 4, 64),
+                                       (1, 16, 8, 256), (24, 16, 8, 256)])
 def test_cuda_kernels_match_plain(T, H, KH, hd, dtype):
     """On a card: each CUDA kernel against its plain version, same inputs."""
     if not torch.cuda.is_available():
@@ -211,3 +218,163 @@ def test_cuda_kernels_match_plain(T, H, KH, hd, dtype):
     assert float((got.float() - want.float()).abs().max()) <= tol
     with pytest.raises(ValueError):        # CPU tensors never reach a kernel
         kern.paged_decode_attention_multi(*[t.cpu() for t in th])
+
+
+def slot_fixture(seed, B, H, KH, hd, M, window, inactive=()):
+    """Random slot cache as ``models.attention.cache_write`` lays it out
+    (numpy, float32). Without a window position p sits in slot p; with
+    one the M slots are a ring (position p in slot p % M) whose rows may
+    have wrapped, so positions are out of slot order; the window may be
+    shorter than the ring, masking its oldest entries. q_pos is each
+    row's last position; rows in ``inactive`` are -1."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, M, KH, hd)).astype(np.float32)
+    v = rng.standard_normal((B, M, KH, hd)).astype(np.float32)
+    lengths = rng.integers(1, 3 * M if window else M, size=(B,))
+    kpos = np.full((B, M), -1, np.int32)
+    for b, n in enumerate(lengths):
+        for p in range(max(0, int(n) - M), int(n)):
+            kpos[b, p % M if window else p] = p
+    q_pos = (lengths - 1).astype(np.int32)
+    q_pos[list(inactive)] = -1
+    return q, k, v, kpos, q_pos
+
+
+DECODE = [  # B, H, KH, hd, M, window, softcap, inactive rows
+    (2, 4, 2, 32, 40, 0, 0.0, ()),
+    (3, 4, 1, 64, 33, 0, 50.0, (1,)),       # MQA (gemma3), softcap
+    (3, 4, 2, 32, 16, 16, 50.0, ()),        # gemma2 smoke ring, wrapped
+    (2, 8, 8, 32, 24, 20, 0.0, (0,)),       # window shorter than the ring
+    (3, 6, 2, 32, 17, 0, 0.0, (2,)),        # G=3, a sink-sized tail
+    (2, 4, 2, 256, 20, 12, 50.0, (1,)),     # gemma head_dim
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KH,hd,M,win,cap,inactive", DECODE)
+def test_decode_attention(jx, B, H, KH, hd, M, win, cap, inactive, dtype):
+    arrays = slot_fixture(B * 100 + M * 7 + hd, B, H, KH, hd, M, win,
+                          inactive)
+    th, ja = torch_inputs(arrays, dtype), jax_inputs(jx, arrays, dtype)
+    got = ops.decode_attention(*th, window=win, softcap=cap)
+    assert got.dtype == th[0].dtype and got.shape == th[0].shape
+    tol = max(TOL[dtype], 1e-4)
+    if dtype == "float32" or inactive:
+        kern = jx.pallas_decode(*ja, window=win, softcap=cap, interpret=True)
+        assert max_err(got, kern) < tol
+    want = np.asarray(jx.ref_decode(*ja, window=win, softcap=cap), np.float32)
+    act = [b for b in range(B) if b not in inactive]
+    assert max_err(got[act], want[act]) < tol
+    assert torch.all(got[list(inactive)] == 0)
+
+
+def test_paged_decode_equals_slot_decode_on_the_same_rows():
+    """The paged version over an identity block table is the slot version."""
+    q, k, v, kpos, q_pos = slot_fixture(11, 3, 4, 2, 32, 32, 0, (2,))
+    th = torch_inputs((q, k, v, kpos, q_pos), "float32")
+    ps = 8
+
+    def pages(x):           # null page 0, then row b's pages 4b+1..4b+4
+        x = x.reshape(-1, ps, *x.shape[2:])
+        return torch.cat([torch.zeros_like(x[:1]), x])
+
+    kp = torch.cat([torch.full((1, ps), -1, dtype=torch.int32),
+                    th[3].reshape(-1, ps)])
+    bt = torch.arange(1, 13, dtype=torch.int32).reshape(3, 4)
+    paged = ops.paged_decode_attention(th[0], pages(th[1]), pages(th[2]), kp,
+                                       bt, th[4])
+    assert max_err(paged, ops.decode_attention(*th)) < 1e-6
+
+
+def probe_fixture(seed, B, d, hid, k, fallback=False):
+    """Probe weights, tap and posterior (numpy, float32). With
+    ``fallback`` row 0's prior and probe distribution do not overlap: its
+    tap is scaled up (by powers of 10) until the probe puts all its mass
+    on one bin (every other exponential underflows), and its previous
+    posterior sits half the bins away, so prior * p sums to 0 and the
+    filter falls back to the prior. The other rows keep ordinary
+    distributions."""
+    rng = np.random.default_rng(seed)
+    tap = rng.standard_normal((B, d)).astype(np.float32)
+    w1 = (rng.standard_normal((d, hid)) * d ** -0.5).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(hid)).astype(np.float32)
+    w2 = (rng.standard_normal((hid, k)) * hid ** -0.5).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(k)).astype(np.float32)
+    q_prev = rng.dirichlet(np.ones(k), size=B).astype(np.float32)
+    r = 1.0 / 8
+    T = (np.eye(k) * (1 - r) + np.eye(k, k=1) * r).astype(np.float32)
+    T[0, 0] = 1.0
+    if fallback:        # scale until every other bin underflows
+        while True:
+            tap[0] *= 10.0
+            logits = np.maximum(tap[0] @ w1 + b1, 0) @ w2 + b2
+            p = np.exp(logits - logits.max())
+            j = (int(np.argmax(logits)) + k // 2) % k
+            if float((p * T[:, j]).sum()) == 0.0:
+                break
+        q_prev[0] = 0.0
+        q_prev[0, j] = 1.0
+    return tap, w1, b1, w2, b2, q_prev, T
+
+
+@pytest.mark.parametrize("B,d,hid,k,tap_dtype,fallback", [
+    (4, 64, 32, 5, "float32", False),
+    (3, 128, 32, 5, "bfloat16", False),
+    (16, 96, 48, 10, "float32", True),      # the prior fallback
+    (2, 200, 64, 10, "bfloat16", True),
+])
+def test_probe_update(jx, B, d, hid, k, tap_dtype, fallback):
+    arrays = probe_fixture(B + d + hid, B, d, hid, k, fallback)
+    th = [torch.from_numpy(a) for a in arrays]
+    th[0] = th[0].to(getattr(torch, tap_dtype))
+    ja = [jx.jnp.asarray(a) for a in arrays]
+    ja[0] = ja[0].astype(tap_dtype)
+    q_new, p = ops.probe_update(*th)
+    assert q_new.dtype == p.dtype == torch.float32
+    assert q_new.shape == p.shape == (B, k)
+    jq, jp = jx.pallas_probe(*ja, interpret=True)
+    assert max_err(q_new, jq) < 1e-5 and max_err(p, jp) < 1e-5
+    if fallback:       # row 0 fell back to its prior, q_prev @ T^T
+        prior = th[5][0] @ th[6].T
+        assert float((p[0] * prior).sum()) == 0.0
+        assert torch.allclose(q_new[0], prior, atol=1e-6)
+        assert float(p[1:].min()) > 0.0         # the other rows are spread
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KH,hd,M,win", [(16, 8, 256, 300, 0),
+                                           (16, 8, 256, 256, 256),
+                                           (4, 1, 256, 96, 64),
+                                           (32, 8, 128, 200, 0)])
+def test_cuda_decode_attention_matches_plain(H, KH, hd, M, win, dtype):
+    """On a card: the slot-cache kernel against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import decode_attention as kern
+    th = [t.cuda() for t in torch_inputs(
+        slot_fixture(M + hd, 6, H, KH, hd, M, win, (2,)), dtype)]
+    got = kern.decode_attention(*th, window=win, softcap=50.0)
+    want = tref.decode_attention_ref(*th, window=win, softcap=50.0)
+    torch.cuda.synchronize()
+    tol = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,tap_dtype,fallback", [(16, "bfloat16", False),
+                                                  (1, "float32", True)])
+def test_cuda_probe_update_matches_plain(B, tap_dtype, fallback):
+    """On a card: the probe kernel against its plain version (gemma2-9b
+    width: d=3584, hidden 512, 10 bins)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import probe as kern
+    th = [torch.from_numpy(a).cuda()
+          for a in probe_fixture(B, B, 3584, 512, 10, fallback)]
+    th[0] = th[0].to(getattr(torch, tap_dtype))
+    got, want = kern.probe_update(*th), tref.probe_update_ref(*th)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5

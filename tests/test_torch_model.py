@@ -3,7 +3,9 @@
 Weights come from the reference ``Model.init`` and cross over with
 ``params_from_jax`` (or through an ``.npz`` checkpoint and ``load_npz``);
 inputs are made with numpy from fixed seeds. The paged layout uses the
-scrambled block tables of ``tests/test_megastep.py``.
+scrambled block tables of ``tests/test_megastep.py``. The sliding-window
+configs (gemma2, gemma3 smoke: window 16) run prompts longer than the
+window under both layouts, so their rings wrap.
 
 Tolerances: in float32 (``dataclasses.replace(cfg, dtype="float32")``)
 greedy tokens and ``n_emitted`` match exactly, logits and probe
@@ -71,7 +73,7 @@ def inputs(vocab, seed=1):
 def caches(jm, tm):
     jc = jm.init_cache(B, MAX_LEN, kv_layout="paged", page_size=PS)
     jc["block_table"] = jnp.asarray(table())
-    tc = tm.init_cache(B, MAX_LEN, page_size=PS)
+    tc = tm.init_cache(B, MAX_LEN, kv_layout="paged", page_size=PS)
     tc["block_table"].copy_(torch.from_numpy(table()))
     return jc, tc
 
@@ -196,7 +198,7 @@ def test_decode_multi_equals_sequential_decode_steps():
     cfg = dataclasses.replace(port_smoke_config("granite-3-8b"),
                               dtype="float32")
     m = Model(cfg, device="cpu").init(seed=3)
-    cache = m.init_cache(B, MAX_LEN, page_size=PS)
+    cache = m.init_cache(B, MAX_LEN, kv_layout="paged", page_size=PS)
     cache["block_table"].copy_(torch.from_numpy(table()))
     tokens, valid = inputs(cfg.vocab_size, seed=4)
     logits, cache, *_ = m.prefill_chunk(cache, torch.from_numpy(tokens),
@@ -261,12 +263,118 @@ def test_init_is_seeded_with_the_reference_distributions():
 
 @pytest.mark.parametrize("arch", ARCH_IDS + ("trail-llama",))
 def test_only_attention_stacks_are_ported(arch):
+    """Global and sliding-window attention stacks construct (the gemma
+    configs among them); every other layer kind and feature raises."""
     cfg = port_smoke_config(arch)
-    supported = (set(cfg.layer_kinds) == {"attn"} and not cfg.kv_quant
-                 and not cfg.cross_attention and not cfg.num_prefix_tokens
-                 and cfg.use_rope and cfg.family != "audio")
+    supported = (set(cfg.layer_kinds) <= {"attn", "local"}
+                 and not cfg.kv_quant and not cfg.cross_attention
+                 and not cfg.num_prefix_tokens and cfg.use_rope
+                 and cfg.family != "audio")
     if supported:
         Model(cfg, device="cpu")
     else:
         with pytest.raises(NotImplementedError):
             Model(cfg, device="cpu")
+    assert supported or not arch.startswith("gemma")
+
+
+def test_init_cache_defaults_to_the_contiguous_layout():
+    """As in the reference: slot caches, no block table; a windowed run
+    holds a ring of min(window, max_len) slots, each row one sink slot
+    more (kpos -1)."""
+    m = Model(port_smoke_config("gemma2-9b"), device="cpu")
+    cache = m.init_cache(2, 40)
+    assert "block_table" not in cache
+    kinds = [sub for run in (cache[k] for k in cache if k != "lengths")
+             for sub in run]
+    assert sorted(sub["k"].shape[2] for sub in kinds) == [17, 41]
+    assert all(torch.all(sub["kpos"] == -1) for sub in kinds)
+    paged = m.init_cache(2, 40, kv_layout="paged", page_size=8)
+    assert paged["block_table"].shape == (2, 5)
+    assert {tuple(sorted(sub)) for run in (paged[k] for k in paged
+                                           if k.startswith("run_"))
+            for sub in run} == {("k", "kpos", "v"), ("pk", "pkpos", "pv")}
+
+
+def slot_cache_equal(js, ts, tol):
+    """A JAX slot leaf set against the port's, whose rows end in a sink."""
+    n = js["kpos"].shape[-1]
+    assert np.array_equal(np.asarray(js["kpos"]), ts["kpos"][..., :n].numpy())
+    assert torch.all(ts["kpos"][..., n:] == -1)
+    assert err(js["k"], ts["k"][..., :n, :, :]) < tol
+    assert err(js["v"], ts["v"][..., :n, :, :]) < tol
+
+
+@pytest.mark.parametrize("kv_layout", ["contig", "paged"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-1b"])
+def test_sliding_window_models_match_jax(arch, kv_layout):
+    """Two prefill chunks (24 then 20 tokens, past the window of 16, so
+    the rings wrap inside a chunk), then a megastep of 6 with an inactive
+    row: float32 greedy tokens equal, logits and posteriors within 1e-4,
+    caches equal."""
+    cfg, jm, params, jpre, jmulti, _ = jax_model(arch, "float32", False)
+    tm = port_model(arch, "float32", params)
+    ml = 64
+    jc = jm.init_cache(B, ml, kv_layout=kv_layout, page_size=PS)
+    tc = tm.init_cache(B, ml, kv_layout=kv_layout, page_size=PS)
+    if kv_layout == "paged":
+        t = np.arange(1, 1 + B * ml // PS, dtype=np.int32)
+        t = np.random.default_rng(0).permutation(t).reshape(B, -1)
+        jc["block_table"] = jnp.asarray(t)
+        tc["block_table"].copy_(torch.from_numpy(t))
+    rng = np.random.default_rng(5)
+    valid = np.ones((B, 24), bool)
+    valid[1, 20:] = False
+    for width, v in ((24, valid), (20, None)):
+        tokens = rng.integers(4, cfg.vocab_size, (B, width)).astype(np.int32)
+        jl, jc, jts, jn = jpre(params, jc, jnp.asarray(tokens),
+                               valid=None if v is None else jnp.asarray(v))
+        tl, tc, tts, tn = tm.prefill_chunk(
+            tc, torch.from_numpy(tokens),
+            None if v is None else torch.from_numpy(v))
+        assert err(jl, tl) < TOL_F32 and err(jts, tts) < TOL_F32
+        assert np.array_equal(np.asarray(jn), tn.numpy())
+    tok = np.asarray(jnp.argmax(jl, -1))[:, None].astype(np.int32)
+    active = np.array([True, False, True])
+    jt, jc, jp, je = jmulti(params, jc, jnp.asarray(tok), jnp.asarray(active),
+                            k=6)
+    tt, tc, tp, te = tm.decode_multi(tc, torch.from_numpy(tok),
+                                     torch.from_numpy(active), k=6)
+    assert np.array_equal(np.asarray(jt), tt.numpy())
+    assert np.array_equal(np.asarray(je), te.numpy())
+    assert err(jp, tp) < TOL_F32
+    assert np.array_equal(np.asarray(jc["lengths"]), tc["lengths"].numpy())
+    for key in (k for k in jc if k.startswith("run_")):
+        for js, ts in zip(jc[key], tc[key]):
+            if "kpos" in js:
+                slot_cache_equal(js, ts, 1e-5)
+            else:
+                assert np.array_equal(np.asarray(js["pkpos"]),
+                                      ts["pkpos"].numpy())
+                assert err(js["pk"], ts["pk"]) < 1e-5
+
+
+@pytest.mark.parametrize("window,positions", [
+    (0, [[1, 2, 1, 2, 1], [0, 0, 0, 4, 4]]),    # repeats; 4 is past the end
+    (0, [[0, 1, 2, 3, -1], [-1, 3, -1, 2, 1]]),
+    (4, [[0, 1, 2, 3, 4], [2, 3, 4, 5, 6]]),    # ring wraps inside the call
+    (4, [[3, 4, 5, 6, 7], [-1, -1, 9, 10, -1]]),
+])
+def test_cache_write_drops_and_keeps_the_last_duplicate(window, positions):
+    """``cache_write`` against the reference's ``mode="drop"`` scatter on
+    4 slots: inactive and overflowing positions are dropped, and where
+    several entries of one call land on one slot the last one wins."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    positions = np.asarray(positions, np.int32)
+    B, S = positions.shape
+    new = np.arange(B * S * 2, dtype=np.float32).reshape(B, S, 1, 2)
+    jc = {"k": jnp.zeros((B, 4, 1, 2)), "v": jnp.zeros((B, 4, 1, 2)),
+          "kpos": jnp.full((B, 4), -1, jnp.int32)}
+    jc = jattn.cache_write(jc, jnp.asarray(new), jnp.asarray(-new),
+                           jnp.asarray(positions), window)
+    tc = {"k": torch.zeros((B, 5, 1, 2)), "v": torch.zeros((B, 5, 1, 2)),
+          "kpos": torch.full((B, 5), -1, dtype=torch.int32)}
+    t = torch.from_numpy(new)
+    tattn.cache_write(tc, t, -t, torch.from_numpy(positions), window)
+    slot_cache_equal(jc, tc, 0.0 + 1e-12)
