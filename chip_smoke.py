@@ -49,7 +49,36 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
 8. drive ``launch.steps.make_serve_step`` on ``gemma2-9b`` for 8 steps
    after a prefill: each step's fused probe (``probe_update``) against
    its plain version on the same tap, predicted lengths finite;
-9. profile one ``gemma2-9b`` decode megastep and one prefill chunk.
+9. profile one ``gemma2-9b`` decode megastep and one prefill chunk;
+10. ``flash_attention`` (the training and profiling forwards): checked in
+    phase 3 against its plain version, float32 and bfloat16, at the
+    shapes of ``tests/test_kernels.py``, non-causal at S=200, and at the
+    path's shapes (trail-llama 8x512 with 12/4 heads, granite 8x512 with
+    32/8 heads, a gemma2-9b local layer at S=4608 with window 4096 and
+    softcap 50, a gemma3-1b local layer with window 512), plus the
+    ``FlashAttention`` Function's gradients against plain autograd;
+    timed in phase 4 at the trail-llama, granite and gemma2 shapes
+    (library yardstick: ``scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)``, no softcap or window);
+11. hold the training path on the card against the CPU in float32 on
+    ``trail-llama-smoke`` and ``gemma2-smoke`` (S=64, so the window of 16
+    binds): ``forward_train`` loss and tap, every parameter's gradient,
+    and one ``train_lm`` step;
+12. profile ``granite-3-8b`` at full width and depth on its served model:
+    harvest 8 batches of 8 x 512 tokens of tap embeddings with
+    ``harvest_probe_data`` and train a probe on them (printed, not gated:
+    the weights are random);
+13. one ``gemma2-9b`` ``forward_train`` at B=1, S=4608 (past the 4096-token
+    window) under inference mode: 42 launches, a finite loss;
+14. train ``trail-llama`` at full width (12 layers, d_model 768) through
+    ``python -m repro_torch.launch.train``'s ``main`` for ``TRAIN_STEPS``
+    steps of 8 x 512 tokens: the last logged loss below 0.7 x the first
+    (the reference's own test factor), 24 ``flash_attention`` launches per
+    step (12 layers, and 12 again in the remat recompute), the ``--ckpt``
+    file read back with ``load_npz``; then harvest its taps, check
+    ``forward_all_taps``, train the probe (its MAE below the
+    uniform prior's), serve 12 requests with that probe under
+    ``policy="trail"``, and profile one train step.
 
 Every kernel launch count is set to 0 just before a path is driven and
 read just after it; launches made to compare a kernel with its plain
@@ -62,13 +91,16 @@ serve phases report host wall time around work that ends in
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -83,6 +115,8 @@ ROUNDING = {"float32": None, "bfloat16": (2.0 ** -7, 1e-4)}   # (rel, abs)
 PROBE_TOL = 1e-5
 PAGED_ARGS = ("q", "k_pages", "v_pages", "kpos_pages", "block_table", "q_pos")
 SLOT_ARGS = ("q", "k", "v", "kpos", "q_pos")
+TRAIN_STEPS = 40                    # trail-llama steps of 8 x 512 tokens
+PROBE_EPOCHS = 8                    # the paper's 30, cut for time
 
 
 def log(*args):
@@ -264,6 +298,40 @@ def probe_bound(case):
     return bound_ms(nbytes, 2 * B * d * hid + 2 * B * hid * k, "float32")
 
 
+def flash_case(torch, *, B, S, H, KH, hd, dtype, seed):
+    """q (B,S,H,hd), k/v (B,S,KH,hd): standard normal draws made with numpy
+    from ``seed`` (as ``tests/test_torch_kernels.py`` makes them), cast to
+    ``dtype`` on the card."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to("cuda").to(tdt)
+            for shape in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd))]
+
+
+def flash_bound(q, k, window, dtype):
+    """Bytes: q, k and v read once and the output written once. Operations:
+    4*hd (QK^T and PV) per (query head, key) pair that the causal (and
+    window) mask lets through."""
+    B, S, H, hd = q.shape
+    el = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * el
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    return bound_ms(nbytes, 4 * hd * H * B * pairs, dtype)
+
+
+def flash_library_call(q, k, v):
+    """One ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    on (B, H, S, hd) copies made outside the timed call: the yardstick
+    (never used by the port). It has no softcap or window, so it times
+    the plain causal attention."""
+    import torch.nn.functional as F
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  enable_gqa=True)
+
+
 def time_ms(torch, fn, iters=30, warmup=3):
     for _ in range(warmup):
         fn()
@@ -421,6 +489,75 @@ SLOT_CASES = [  # arch, H, KH, hd, M, window, softcap
 ]
 
 
+FLASH_CASES = [  # label, B, S, H, KH, hd, window, softcap, causal
+    ("sweep", 2, 64, 4, 2, 32, 0, 0.0, True),
+    ("sweep MQA ragged", 1, 100, 4, 1, 64, 0, 0.0, True),
+    ("sweep MHA window", 2, 128, 8, 8, 32, 32, 0.0, True),
+    ("sweep softcap", 1, 96, 4, 2, 32, 0, 50.0, True),
+    ("sweep window+softcap", 2, 80, 4, 2, 32, 24, 30.0, True),
+    ("non-causal S=200", 1, 200, 4, 2, 64, 0, 0.0, False),
+    ("trail-llama", 8, 512, 12, 4, 64, 0, 0.0, True),
+    ("granite-3-8b", 8, 512, 32, 8, 128, 0, 0.0, True),
+    ("gemma2-9b local", 1, 4608, 16, 8, 256, 4096, 50.0, True),
+    ("gemma3-1b local", 2, 1024, 4, 1, 256, 512, 0.0, True),
+]
+
+FLASH_TIMED = {  # arch: B, S, H, KH, hd, window, softcap (bf16)
+    "trail-llama": (8, 512, 12, 4, 64, 0, 0.0),
+    "granite-3-8b": (8, 512, 32, 8, 128, 0, 0.0),
+    "gemma2-9b local": (1, 4608, 16, 8, 256, 4096, 50.0),
+}
+
+
+def phase_check_flash(torch):
+    """``flash_attention`` against its plain version on the same inputs,
+    and the ``FlashAttention`` Function's dq, dk, dv against plain
+    autograd. Returns the worst bf16 error at the trail-llama shape (the
+    one its row in the JSON line times)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import FlashAttention
+    worst = 0.0
+    for i, (label, B, S, H, KH, hd, window, cap, causal) in enumerate(
+            FLASH_CASES):
+        for dtype in ("float32", "bfloat16"):
+            # seed 0 for the non-causal case: the inputs of
+            # test_flash_attention_non_causal_never_counts_padding
+            q, k, v = flash_case(torch, B=B, S=S, H=H, KH=KH, hd=hd,
+                                 dtype=dtype, seed=0 if not causal else i)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                     softcap=cap)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, softcap=cap)
+            torch.cuda.synchronize()
+            err = compare("flash_attention",
+                          f"{label:20s} {dtype:8s} B={B} S={S} H={H} "
+                          f"KH={KH} hd={hd} window={window} "
+                          f"softcap={cap:2.0f} causal={causal}",
+                          got, want, dtype)
+            if label == "trail-llama" and dtype == "bfloat16":
+                worst = err
+            del q, k, v, got, want
+    for dtype, (B, S, H, KH, hd, window, cap) in (
+            ("float32", (2, 300, 12, 4, 64, 0, 0.0)),
+            ("bfloat16", (2, 512, 16, 8, 256, 128, 50.0))):
+        q, k, v = flash_case(torch, B=B, S=S, H=H, KH=KH, hd=hd, dtype=dtype,
+                             seed=S)
+        dout = torch.randn_like(q)
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(FlashAttention.apply(*ins, window, cap),
+                                  ins, dout)
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention_ref(
+            *ins, window=window, softcap=cap), ins, dout)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            compare("FlashAttention." + name,
+                    f"B={B} S={S} H={H} KH={KH} hd={hd} window={window} "
+                    f"softcap={cap:2.0f} {dtype}", a, b, dtype)
+    return worst
+
+
 def phase_check(torch):
     """Every kernel against its plain version on the same inputs; returns
     the worst error of each at the shapes its row in the JSON line times."""
@@ -565,6 +702,20 @@ def phase_time(torch):
             slot_library_call(case, window),
             slot_bound(case, window, "bfloat16"))
 
+    from repro_torch.kernels import flash_attention as fa
+    for arch, (B, S, H, KH, hd, window, cap) in FLASH_TIMED.items():
+        q, k, v = flash_case(torch, B=B, S=S, H=H, KH=KH, hd=hd,
+                             dtype="bfloat16", seed=11)
+        row(f"flash_attention[{arch}]", f"B={B} S={S} H={H} KH={KH} "
+            f"hd={hd} window={window} softcap={cap:2.0f} causal bf16",
+            lambda: fa.flash_attention(q, k, v, window=window, softcap=cap),
+            lambda: ref.flash_attention_ref(q, k, v, window=window,
+                                            softcap=cap),
+            flash_library_call(q, k, v), flash_bound(q, k, window,
+                                                     "bfloat16"),
+            plain_iters=3 if S > 1024 else 10)
+        del q, k, v
+
     case = probe_case(torch, B=16, d=3584, hid=512, k=10,
                       tap_dtype="bfloat16", seed=9)
     args = list(case.values())
@@ -624,6 +775,78 @@ def phase_reference(torch):
             fail(f"{cfg.name} on the card disagrees with the CPU: {errs}")
         if errs[2] != 0 or errs[4] != 0:
             fail(f"{cfg.name}: greedy tokens on the card differ from the CPU")
+
+
+def phase_reference_train(torch):
+    """The training path in float32 on the card (``flash_attention``)
+    against the same weights on the CPU (its plain version):
+    ``forward_train`` loss and tap, every parameter's gradient and one
+    ``train_lm`` step, on trail-llama-smoke and gemma2-smoke at S=64 (the
+    window of 16 binds). Tolerances: loss 1e-5 relative, tap 1e-4,
+    gradients 1e-6 plus 1e-4 of the largest of their leaf (float32 sums
+    taken in another order on the card), weights after the step 1e-5
+    where the gradient is at least 1e-6: AdamW's first step moves a
+    weight by lr * g / (|g| + 1e-8), which turns the last bits of a
+    gradient near 1e-8 into a visible difference; those elements are
+    counted, not compared."""
+    from torch.func import functional_call
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, batches
+    from repro_torch.training.train import train_lm
+    for arch in ("trail-llama", "gemma2-9b"):
+        cfg, gpu, cpu = _model_pair(arch, seed=11)
+        dc = DataConfig(vocab=cfg.vocab_size, seq_len=64, batch=4,
+                        prompt_mean=8, max_out=32, seed=11)
+        batch = next(batches(dc, 1))
+        ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=10)
+        out = {}
+        for dev, m in (("cuda", gpu), ("cpu", cpu)):
+            masters = {k: v.detach().clone().float()
+                       for k, v in gpu.state_dict().items()}
+            masters = {k: v.to(dev) for k, v in masters.items()}
+            live = {k: v.clone().requires_grad_() for k, v in masters.items()}
+            tb = {k: torch.from_numpy(batch[k]).to(dev)
+                  for k in ("tokens", "labels")}
+            loss, aux = functional_call(m, live, (tb,))
+            grads = torch.autograd.grad(loss, list(live.values()),
+                                        allow_unused=True)
+            stepped, _, hist = train_lm(m, masters, batches(dc, 1), ocfg, 1)
+            out[dev] = (float(loss.detach()), aux["tap"].detach().cpu(),
+                        {k: None if g is None else g.cpu()
+                         for k, g in zip(live, grads)},
+                        {k: v.cpu() for k, v in stepped.items()},
+                        hist[0]["loss"])
+        torch.cuda.synchronize()
+        (gl, gt, gg, gs, gh), (cl, ct, cg, cs, ch) = out["cuda"], out["cpu"]
+        tap_err = float((gt - ct).abs().max())
+        grad_ok, grad_err = True, 0.0
+        for a, b in zip(gg.values(), cg.values()):
+            if (a is None) != (b is None):
+                fail(f"{cfg.name}: a gradient exists on one device only")
+            if a is not None:
+                e = float((a - b).abs().max())
+                grad_err = max(grad_err, e)
+                grad_ok &= e <= 1e-6 + 1e-4 * float(b.abs().max())
+        step_err, ill = 0.0, 0
+        for k in cs:
+            keep = (torch.ones_like(cs[k], dtype=torch.bool) if cg[k] is None
+                    else cg[k].abs() >= 1e-6)
+            ill += int((~keep).sum())
+            if keep.any():
+                step_err = max(step_err, float(
+                    (gs[k] - cs[k]).abs()[keep].max()))
+        log(f"[reference-train] {cfg.name} f32 S=64, card vs CPU: loss "
+            f"{gl:.6f} vs {cl:.6f}, tap {tap_err:.2e}, gradients of "
+            f"{len(gg)} parameters within {grad_err:.2e} "
+            f"({sum(g is None for g in gg.values())} without one: the "
+            f"probe), one train_lm step: loss {gh:.6f} vs {ch:.6f}, weights "
+            f"within {step_err:.2e} ({ill} elements with |g| < 1e-6 not "
+            f"compared)")
+        if not (abs(gl - cl) <= 1e-5 * abs(cl) and tap_err <= 1e-4
+                and grad_ok and abs(gh - ch) <= 1e-5 * abs(ch)
+                and step_err <= 1e-5):
+            fail(f"{cfg.name}: the training path on the card disagrees with "
+                 f"the CPU")
 
 
 def _requests(cfg, n, seed, long_prompts=()):
@@ -807,6 +1030,184 @@ def phase_serve_granite(torch):
     cache["block_table"].copy_(torch.arange(
         1, 1 + 16 * 28, dtype=torch.int32, device="cuda").reshape(16, 28))
     phase_profile(torch, model, cache)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_harvest(torch, cfg, model, n_batches=8, seed=2, gate=False)
+    return launches
+
+
+def phase_harvest(torch, cfg, model, *, n_batches, seed, gate):
+    """Profile the served model's taps (``harvest_probe_data``: one
+    ``forward_train`` of 8 x 512 tokens per batch under inference mode)
+    and train a probe on them; its MAE against the uniform prior's is
+    gated only where the weights are trained. Returns the probe."""
+    import numpy as np
+    from repro_torch.core.bins import bin_means
+    from repro_torch.kernels import ops
+    from repro_torch.training.data import DataConfig, harvest_probe_data
+    from repro_torch.training.train import (ProbeTrainConfig, probe_mae,
+                                            train_probe)
+    dc = DataConfig(vocab=cfg.vocab_size, seq_len=512, batch=8, max_out=448,
+                    seed=seed)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    taps, rem = harvest_probe_data(model, dc, n_batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches["flash_attention"]
+    log(f"[profile-taps] {cfg.name}: harvest_probe_data over {n_batches} "
+        f"batches of 8 x 512 tokens: {taps.shape[0]} taps of width "
+        f"{taps.shape[1]} in {wall:.3f} s (host clock, ends in "
+        f"synchronize), {n_batches * 8 * 512 / wall:.0f} tokens/s; "
+        f"flash_attention launches {launches}")
+    if launches != cfg.num_layers * n_batches:
+        fail(f"harvest launched flash_attention {launches} times for "
+             f"{n_batches} forwards of {cfg.num_layers} layers")
+    if not np.isfinite(taps).all():
+        fail(f"{cfg.name}: non-finite tap embeddings")
+    t0 = time.perf_counter()
+    pp, hist = train_probe(taps, rem, cfg.probe, cfg.d_model,
+                           ProbeTrainConfig(epochs=PROBE_EPOCHS),
+                           device="cuda")
+    wall = time.perf_counter() - t0
+    mae = probe_mae(pp, taps, rem, cfg.probe)
+    uniform = float(np.mean(np.abs(np.mean(bin_means(cfg.probe)) - rem)))
+    log(f"[probe] {cfg.name}: train_probe {PROBE_EPOCHS} epochs of "
+        f"{taps.shape[0] // 32} steps in {wall:.3f} s: loss "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, accuracy "
+        f"{hist[-1]['acc']:.3f}; MAE {mae:.2f} tokens against the uniform "
+        f"prior's {uniform:.2f}")
+    if gate and not mae < uniform:
+        fail(f"{cfg.name}: the trained probe's MAE {mae} is not below the "
+             f"uniform prior's {uniform}")
+    return pp
+
+
+def phase_long_forward(torch, cfg, model):
+    """One ``forward_train`` at B=1, S=4608 (past the 4096-token window)
+    under inference mode: one ``flash_attention`` launch per layer."""
+    from repro_torch.kernels import ops
+    S = 4608
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(1, cfg.vocab_size, (1, S), generator=g,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        loss, aux = model.forward_train({"tokens": tokens, "labels": labels})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches["flash_attention"]
+    log(f"[long-forward] {cfg.name} forward_train B=1 S={S}: loss "
+        f"{float(loss):.4f} over {int(aux['n_tok'])} labels, wall {wall:.3f} "
+        f"s, flash_attention launches {launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != cfg.num_layers:
+        fail(f"long forward launched flash_attention {launches} times")
+    if not (math.isfinite(float(loss)) and torch.isfinite(aux["tap"]).all()):
+        fail("long forward: non-finite loss or tap")
+
+
+def phase_train(torch):
+    """Train trail-llama at full width through the launcher's ``main``, then
+    profile its taps, train the probe on them, serve with that probe and
+    profile one train step. Returns the training run's launch counts."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import load_npz, params_from_jax
+    from repro_torch.serving.predictors import ProbePredictor
+    args = ["--arch", "trail-llama", "--steps", str(TRAIN_STEPS), "--batch",
+            "8", "--seq", "512", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "trail-llama.npz")
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            model, params, hist = launch_train.main(args + ["--ckpt", ckpt])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated()
+        for line in printed.getvalue().splitlines():
+            log(f"[train]   {line}")
+        cfg = model.cfg
+        restored = params_from_jax(cfg, load_npz(ckpt)["params"])
+    n_params = sum(v.numel() for v in params.values())
+    tokens = TRAIN_STEPS * 8 * 512
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"{n_params / 1e6:.1f} M params; {TRAIN_STEPS} steps of 8 x 512 in "
+        f"{wall:.3f} s (host clock, init included): {1e3 * wall / TRAIN_STEPS:.1f} "
+        f"ms per step, {tokens / wall:.0f} tokens/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; flash_attention launches "
+        f"{launches['flash_attention']} "
+        f"({launches['flash_attention'] / TRAIN_STEPS:g} per step)")
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    log(f"[train] logged loss {first:.4f} (step 0) -> {last:.4f} (step "
+        f"{hist[-1]['step']}): {last / first:.3f} of the first")
+    if not last < 0.7 * first:
+        fail(f"trail-llama's loss did not fall below 0.7 x its first: "
+             f"{first} -> {last}")
+    if launches["flash_attention"] != 2 * cfg.num_layers * TRAIN_STEPS:
+        fail(f"flash_attention launched {launches['flash_attention']} times "
+             f"in {TRAIN_STEPS} steps, not {2 * cfg.num_layers} per step")
+    if any(not torch.equal(restored[k], params[k].cpu()) for k in params):
+        fail("the --ckpt checkpoint does not read back to the trained weights")
+    log(f"[train] --ckpt read back with load_npz: {len(restored)} tensors "
+        f"equal to the trained masters")
+
+    pp = phase_harvest(torch, cfg, model, n_batches=8, seed=1, gate=True)
+    dc_tokens = torch.randint(1, cfg.vocab_size, (2, 512), device="cuda")
+    ops.reset_launches()
+    with torch.inference_mode():
+        taps = model.forward_all_taps({"tokens": dc_tokens})
+        _, aux = model.forward_train({"tokens": dc_tokens,
+                                      "labels": dc_tokens})
+    all_taps = ops.launches["flash_attention"]
+    log(f"[profile-taps] forward_all_taps {tuple(taps.shape)}: layer "
+        f"{cfg.probe.tap_layer} equals forward_train's tap "
+        f"{bool(torch.equal(taps[cfg.probe.tap_layer], aux['tap']))}; "
+        f"flash_attention launches {all_taps} (both passes)")
+    if (not torch.equal(taps[cfg.probe.tap_layer], aux["tap"])
+            or all_taps != 2 * cfg.num_layers):
+        fail("forward_all_taps disagrees with forward_train")
+
+    with torch.no_grad():
+        for name, value in pp.items():
+            model.probe[name].copy_(value)
+    pred = ProbePredictor(cfg.probe, probe_params=model.probe,
+                          embed_table=model.embed)
+    reqs = _requests(cfg, 12, 0)
+    max_len = _max_len(reqs)
+    _describe(reqs, max_len)
+    knobs = dict(mode="real", kv_layout="contig", probe_interval=4,
+                 max_batch=16, max_len=max_len, page_size=16)
+    served, _ = _serve(torch, cfg, model, reqs, knobs, pred)
+    if served["decode_attention"] <= 0:
+        fail("decode_attention never launched serving the trained model")
+
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, batches
+    from repro_torch.training.train import make_train_step
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=4, total_steps=TRAIN_STEPS)
+    step = make_train_step(model, ocfg)
+    state = opt.init(ocfg, params)
+    batch = next(batches(DataConfig(vocab=cfg.vocab_size, seq_len=512,
+                                    batch=8, max_out=448, seed=9), 1))
+    batch = {k: torch.from_numpy(np.asarray(batch[k])).to("cuda")
+             for k in ("tokens", "labels")}
+    _profile(torch, cfg.name, "train step 8 x 512",
+             lambda: step(params, state, batch))
     return launches
 
 
@@ -906,8 +1307,6 @@ def phase_profile(torch, model, cache):
     of the kernels' durations, one stream) and the kernels that take it.
     Busy over wall is the device's busy share; the rest of the wall time
     the device sits idle."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     B, dev = 16, "cuda"
     name = model.cfg.name
     g = torch.Generator(device=dev).manual_seed(3)
@@ -925,35 +1324,46 @@ def phase_profile(torch, model, cache):
              "prefill chunk 16x256, 2 rows active":
              lambda: model.prefill_chunk(cache, chunk, valid)}
     for label, fn in cases.items():
-        fn()                                    # warm
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(1e6 * (time.perf_counter() - t0))
-        wall_us = sorted(walls)[1]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not kernels:
-            log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms; the "
-                f"profiler saw no device events (busy share not measured)")
-            continue
-        by_name: dict[str, float] = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
-        busy = sum(by_name.values())
-        log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms, device "
-            f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
-            f"{len(kernels)} kernel launches")
-        for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-            log(f"[profile]   {100 * us / busy:5.1f}% {us / 1e3:8.3f} ms "
-                f"{kname[:90]}")
+        _profile(torch, name, label, fn)
+
+
+def _profile(torch, name, label, fn):
+    """Wall time of ``fn`` (the median of three runs on the host clock,
+    without the profiler, after a warm run), then one run under
+    ``torch.profiler``: the device busy time (the sum of the kernels'
+    durations, one stream), the kernel launches and the kernels that take
+    the time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                    # warm
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e6 * (time.perf_counter() - t0))
+    wall_us = sorted(walls)[1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms; the "
+            f"profiler saw no device events (busy share not measured)")
+        return
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+        f"{len(kernels)} kernel launches")
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[profile]   {100 * us / busy:5.1f}% {us / 1e3:8.3f} ms "
+            f"{kname[:90]}")
 
 
 def main():
@@ -969,8 +1379,10 @@ def main():
         fail(f"the repro_torch package is not beside this script: {e}")
     phase_build()
     worst = phase_check(torch)
+    worst["flash_attention"] = phase_check_flash(torch)
     rows = phase_time(torch)
     phase_reference(torch)
+    phase_reference_train(torch)
     granite = phase_serve_granite(torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -981,6 +1393,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_profile(torch, model, model.init_cache(16, 1024))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_long_forward(torch, cfg, model)
+    del cfg, model, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = phase_train(torch)
 
     kernels = []
     for kname, label, source, replaces, launches in (
@@ -995,7 +1414,9 @@ def main():
             ("decode_attention", "decode_attention[gemma2-9b,ring]",
              "decode_attention.cu", "decode_attention.py:71", gemma2),
             ("probe_update", "probe_update[gemma2-9b]", "probe.cu",
-             "probe.py:55", step_launches)):
+             "probe.py:55", step_launches),
+            ("flash_attention", "flash_attention[trail-llama]",
+             "flash_attention.cu", "flash_attention.py:84", trained)):
         row = rows[label]
         kernels.append(dict(
             name=kname, route="cuda",

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for Hopper (``sm_90a``) on the serving path.
+"""Hand-written CUDA kernels for Hopper (``sm_90a``) on the serving and
+training paths.
 
 Each kernel ships three pieces:
   csrc/<name>.cu — the CUDA C++ source with a plain C interface
@@ -20,4 +21,7 @@ Kernels:
                                  (window, softcap)
   probe_update                 — the TRAIL probe MLP, softmax and one
                                  Bayes-filter step
+  flash_attention              — blocked causal or non-causal attention
+                                 over full sequences (window, softcap);
+                                 the training and profiling forwards
 """

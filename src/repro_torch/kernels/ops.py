@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import probe as _probe
 
@@ -59,3 +60,13 @@ def probe_update(tap, w1, b1, w2, b2, q_prev, T):
     if tap.device.type == "cpu":
         return ref.probe_update_ref(tap, w1, b1, w2, b2, q_prev, T)
     return _probe.probe_update(tap, w1, b1, w2, b2, q_prev, T)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Full-sequence attention (training and profiling forwards).
+    q: (B,S,H,hd); k/v: (B,S,KH,hd) -> (B,S,H,hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=softcap)

@@ -35,6 +35,35 @@ def _masked_softmax(scores: torch.Tensor, vmask: torch.Tensor) -> torch.Tensor:
     return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """q: (B,S,H,hd); k/v: (B,S,KH,hd) -> (B,S,H,hd) in q's dtype.
+
+    Dense-position attention over one sequence: key j is valid for the
+    query at position i when j <= i (``causal``) and j > i - ``window``
+    (``window`` > 0). Scores are float32, scaled by hd^-0.5 and soft-capped
+    before the mask; masked keys get probability exactly 0. Only the S
+    real keys exist here, so none past the sequence ever counts (the
+    reference's Pallas kernel lets its zero padding in when not causal).
+    """
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    qg = q.reshape(B, S, KH, H // KH, hd).float()
+    scores = torch.einsum("bskgh,bmkh->bkgsm", qg, k.float()) * (hd ** -0.5)
+    scores = _softcap(scores, softcap)
+    pos = torch.arange(S, device=q.device)
+    qi, ki = pos[:, None], pos[None, :]
+    valid = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= ki <= qi
+    if window:
+        valid &= ki > qi - window
+    scores = torch.where(valid, scores, NEG_INF)
+    out = torch.einsum("bkgsm,bmkh->bskgh", _masked_softmax(scores, valid),
+                       v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
 def decode_attention_ref(q, k, v, kpos, q_pos, *, window: int = 0,
                          softcap: float = 0.0):
     """q: (B,H,hd) one query/row; k/v: (B,M,KH,hd); kpos: (B,M); q_pos: (B,)."""

@@ -1,5 +1,7 @@
-"""Step functions over the serving model (the reference ``repro.launch``).
+"""Entry points and step functions over the model (the reference
+``repro.launch``).
 
-``steps`` holds the fused serve step and the prefill step; the training
-step waits for the training slice of the port.
+``steps`` holds the fused serve step, the prefill step and the training
+step; ``train`` is the training launcher
+(``python -m repro_torch.launch.train``).
 """

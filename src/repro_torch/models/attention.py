@@ -23,7 +23,10 @@ attention and the paged prefill attention go through
 ``repro_torch.kernels.ops`` (the CUDA kernels for tensors on the card,
 their plain versions in ``kernels/ref.py`` on the CPU). The prefill chunk
 of a slot cache attends with ``attend`` in plain torch, as the reference
-does outside any Pallas kernel.
+does outside any Pallas kernel. The training path's full-sequence causal
+attention (``self_attention_full``) goes through ``ops.flash_attention``
+inside a ``torch.autograd.Function`` whose backward differentiates the
+plain version.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, cdtype
 
@@ -40,16 +43,17 @@ def project_qkv(cfg: ModelConfig, p, hq: torch.Tensor, hkv=None):
     """hq: (B,S,d) queries source; hkv: (B,M,d) keys/values source.
 
     ``p`` holds the projections ``wq``/``wk``/``wv`` (and ``bq``/``bk``/
-    ``bv`` under ``cfg.qkv_bias``) in the compute dtype.
+    ``bv`` under ``cfg.qkv_bias``); each is cast to ``hq``'s dtype at use.
     """
     hkv = hq if hkv is None else hkv
-    q = hq @ p.wq
-    k = hkv @ p.wk
-    v = hkv @ p.wv
+    dt = hq.dtype
+    q = hq @ p.wq.to(dt)
+    k = hkv @ p.wk.to(dt)
+    v = hkv @ p.wv.to(dt)
     if cfg.qkv_bias:
-        q = q + p.bq
-        k = k + p.bk
-        v = v + p.bv
+        q = q + p.bq.to(dt)
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
     B = hq.shape[0]
     q = q.reshape(B, hq.shape[1], cfg.num_heads, cfg.head_dim)
     k = k.reshape(B, hkv.shape[1], cfg.num_kv_heads, cfg.head_dim)
@@ -145,6 +149,50 @@ def _attend_blocked(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, window: int,
 
 
 # ---------------------------------------------------------------------------
+# Training-path attention (no cache): full causal sequences
+# ---------------------------------------------------------------------------
+
+class FlashAttention(torch.autograd.Function):
+    """``ops.flash_attention`` with a gradient.
+
+    The forward runs the kernel (on the card; the plain version on the CPU)
+    and saves q, k and v. The reference has no backward kernel (``jax.grad``
+    differentiates its plain ``attend``), so the backward recomputes the
+    plain version under autograd and returns its dq, dk and dv.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, softcap: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.softcap = window, softcap
+        return ops.flash_attention(q, k, v, window=window, softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(q, k, v, window=ctx.window,
+                                          softcap=ctx.softcap)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+        return dq, dk, dv, None, None
+
+
+def self_attention_full(cfg: ModelConfig, p, h, *, window: int = 0):
+    """Training-path attention: causal over whole sequences at positions
+    0..S-1. h: (B,S,d) -> (B,S,d); ``p`` holds the projections."""
+    B, S = h.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device).expand(B, S)
+    q, k, v = project_qkv(cfg, p, h)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                               window, cfg.attn_logit_softcap)
+    return out.reshape(B, S, cfg.q_dim) @ p.wo.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Self-attention over a slot cache (prefill chunk / decode)
 # ---------------------------------------------------------------------------
 
@@ -237,13 +285,13 @@ def self_attention_cached(cfg: ModelConfig, p, h, cache_l, q_pos, *,
             q[:, 0].contiguous(), cache_l["k"], cache_l["v"], cache_l["kpos"],
             q_pos[:, 0].contiguous(), window=window,
             softcap=cfg.attn_logit_softcap)[:, None]
-        return out.reshape(B, S, cfg.q_dim) @ p.wo, cache_l
+        return out.reshape(B, S, cfg.q_dim) @ p.wo.to(h.dtype), cache_l
     k_all = torch.cat([cache_l["k"], k.to(cache_l["k"].dtype)], dim=1)
     v_all = torch.cat([cache_l["v"], v.to(cache_l["v"].dtype)], dim=1)
     kpos_all = torch.cat([cache_l["kpos"], q_pos.to(torch.int32)], dim=1)
     out = attend(cfg, q, k_all, v_all, q_pos, kpos_all, window=window)
     cache_write(cache_l, k, v, q_pos, window)
-    return out.reshape(B, S, cfg.q_dim) @ p.wo, cache_l
+    return out.reshape(B, S, cfg.q_dim) @ p.wo.to(h.dtype), cache_l
 
 
 # ---------------------------------------------------------------------------
@@ -326,4 +374,4 @@ def self_attention_paged(cfg: ModelConfig, p, h, cache_l, q_pos, block_table):
             q.contiguous(), cache_l["pk"], cache_l["pv"], cache_l["pkpos"],
             block_table, q_pos.contiguous(),
             softcap=cfg.attn_logit_softcap)
-    return out.reshape(B, S, cfg.q_dim) @ p.wo, cache_l
+    return out.reshape(B, S, cfg.q_dim) @ p.wo.to(h.dtype), cache_l

@@ -1,10 +1,11 @@
 """Shared primitives: norms, RoPE, the gated-SiLU MLP, softcap, embeddings.
 
 Compute happens in ``cfg.dtype`` with float32 norm accumulation and float32
-RoPE, as in the reference ``repro.models.layers``. Matmul weights are held
-in the compute dtype (the reference casts its float32 parameters to it
-before every product, so holding them pre-cast gives the same numbers);
-norm scales, the embedding table and the probe stay in ``cfg.param_dtype``.
+RoPE, as in the reference ``repro.models.layers``. Every matmul casts its
+weight to the activation's dtype at use, as the reference does: a no-op for
+the serving model's matmul weights, which are held pre-cast in the compute
+dtype, and the cast of the float32 masters that training passes in. Norm
+scales, the embedding table and the probe stay in ``cfg.param_dtype``.
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
               w_down: torch.Tensor) -> torch.Tensor:
     """Gated-SiLU MLP: ``(silu(x Wg) * x Wu) Wd`` in the compute dtype."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    dt = x.dtype
+    return (F.silu(x @ w_gate.to(dt)) * (x @ w_up.to(dt))) @ w_down.to(dt)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

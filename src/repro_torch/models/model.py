@@ -1,10 +1,14 @@
-"""The serving model: a dense GQA decoder with the fused TRAIL probe.
+"""The model: a dense GQA decoder with the fused TRAIL probe.
 
 ``Model(cfg, device=...)`` is an ``nn.Module`` with one ``Block`` per layer
-and exposes the cached forward passes of the reference
+and exposes the forward passes of the reference
 ``repro.models.model.Model``:
 
   init(seed)                               -> fills the parameters
+  init_params(seed)                        -> the same values as a dict of
+                                              float32 tensors (training masters)
+  forward_train(batch)                     -> (loss, {"aux_loss", "tap", "n_tok"})
+  forward_all_taps(batch)                  -> hidden states after every layer
   init_cache(batch, max_len, kv_layout)    -> cache dict ("contig" slot
                                               caches or "paged" KV pool)
   prefill_chunk(cache, tokens, valid)      -> (logits_last, cache, tap_sum, n_new)
@@ -12,28 +16,34 @@ and exposes the cached forward passes of the reference
   decode_multi(cache, tokens, active, budget, k=, eos_id=)
                                            -> (tokens, cache, probe_probs, n_emitted)
 
-The parameters live on the model, so no method takes them. The cache is
-updated in place and also returned. Global (``KIND_ATTN``) and
+The parameters live on the model, so no method takes them; training runs
+``forward_train`` (the module's ``forward``) through
+``torch.func.functional_call`` with float32 masters in their place. The
+cache is updated in place and also returned. Global (``KIND_ATTN``) and
 sliding-window (``KIND_LOCAL``) attention stacks are ported, so the gemma
 configs run; any other layer kind, ``kv_quant``, cross-attention and
 prefix embeds raise ``NotImplementedError``.
 
 ``params_from_jax`` and ``load_npz`` bring the reference package's weights
 across (as numpy arrays or from its ``.npz`` checkpoint format) without
-importing JAX.
+importing JAX; ``params_to_jax`` is the way back.
 """
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import predictor
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, embed_tokens, pdtype,
                                        unembed)
+from repro_torch.training.checkpoint import load_npz  # noqa: F401 (re-export)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -92,42 +102,124 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # Init
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def init(self, seed: int = 0) -> "Model":
-        """Fill every parameter from a seeded generator on the model's device.
+    def _init_values(self, seed: int):
+        """(name, float32 value) of every parameter, drawn in a fixed order
+        from one seeded generator on the model's device.
 
         The distributions are the reference's (``model.py`` init): embedding
         rows N(0, 0.02^2); projections N(0, 1/fan_in) with ``wo`` and
         ``w_down`` at their own fan-in; zero norm gains and biases; probe
-        weights N(0, 1/fan_in). Values are drawn in float32 and stored in
-        each parameter's dtype. Returns the model.
+        weights N(0, 1/fan_in).
         """
         cfg = self.cfg
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = dict(self.named_parameters())
 
-        def normal(p, scale):
-            p.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float32,
-                                device=self.device) * scale)
+        def normal(name, scale):
+            return name, torch.randn(params[name].shape, generator=gen,
+                                     dtype=torch.float32, device=dev) * scale
 
-        normal(self.embed, 0.02)
+        def zeros(name):
+            return name, torch.zeros(params[name].shape, dtype=torch.float32,
+                                     device=dev)
+
+        yield normal("embed", 0.02)
         if not cfg.tie_embeddings:
-            normal(self.unembed, 0.02)
-        self.final_norm.zero_()
+            yield normal("unembed", 0.02)
+        yield zeros("final_norm")
         d, qd, ff = cfg.d_model, cfg.q_dim, cfg.d_ff
-        for blk in self.layers:
-            blk.norm1.zero_()
-            blk.norm2.zero_()
-            for w in (blk.wq, blk.wk, blk.wv, blk.w_gate, blk.w_up):
-                normal(w, d ** -0.5)
-            normal(blk.wo, qd ** -0.5)
-            normal(blk.w_down, ff ** -0.5)
+        for li in range(cfg.num_layers):
+            pre = f"layers.{li}."
+            yield zeros(pre + "norm1")
+            yield zeros(pre + "norm2")
+            for w in ("wq", "wk", "wv", "w_gate", "w_up"):
+                yield normal(pre + w, d ** -0.5)
+            yield normal(pre + "wo", qd ** -0.5)
+            yield normal(pre + "w_down", ff ** -0.5)
             if cfg.qkv_bias:
-                for b in (blk.bq, blk.bk, blk.bv):
-                    b.zero_()
-        probe = predictor.init_probe(gen, d, cfg.probe, device=self.device)
+                for b in ("bq", "bk", "bv"):
+                    yield zeros(pre + b)
+        probe = predictor.init_probe(gen, d, cfg.probe, device=dev)
         for name, value in probe.items():
-            self.probe[name].copy_(value)
+            yield f"probe.{name}", value
+
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> "Model":
+        """Fill every parameter from a seeded generator (see
+        ``_init_values``); values are drawn in float32 and stored in each
+        parameter's dtype. Returns the model."""
+        params = dict(self.named_parameters())
+        for name, value in self._init_values(seed):
+            params[name].copy_(value)
         return self
+
+    def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
+        """The values ``init(seed)`` stores, as float32 tensors keyed like
+        the state dict: the master weights that training updates."""
+        return dict(self._init_values(seed))
+
+    # ------------------------------------------------------------------
+    # Training forward (full sequences, no cache)
+    # ------------------------------------------------------------------
+    def _block_weights(self, li: int):
+        """Layer ``li``'s weights as they are now (the masters inside
+        ``functional_call``). A checkpointed block is recomputed in the
+        backward, after ``functional_call`` has put the module's own
+        parameters back, so it is handed the tensors themselves."""
+        return types.SimpleNamespace(**dict(
+            self.layers[li].named_parameters()))
+
+    def _train_trunk(self, tokens):
+        """Yield the hidden state after every layer (B,S,d), train-path
+        semantics: causal attention over positions 0..S-1."""
+        cfg = self.cfg
+        h = embed_tokens(cfg, self.embed, tokens)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for li, kind in enumerate(cfg.layer_kinds):
+            w = self._block_weights(li)
+            if remat:
+                h = checkpoint(tfm.block_train, cfg, kind, w, h,
+                               use_reentrant=False)
+            else:
+                h = tfm.block_train(cfg, kind, w, h)
+            yield h
+
+    def forward_train(self, batch: dict):
+        """batch: {"tokens": (B,S), "labels": (B,S)} int (labels -1 where no
+        loss is taken).
+
+        Returns (loss, {"aux_loss", "tap" (B,S,d), "n_tok"}): the mean
+        next-token cross-entropy over labels >= 0, the tap layer's hidden
+        state and the number of such labels. With ``cfg.remat`` and grad
+        on, each block is recomputed in the backward
+        (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+        """
+        if set(batch) - {"tokens", "labels"}:
+            raise NotImplementedError(
+                f"batch keys {sorted(set(batch) - {'tokens', 'labels'})} "
+                "(prefix or encoder embeds) are not ported")
+        tap = h = None
+        for li, h in enumerate(self._train_trunk(batch["tokens"])):
+            if li == self.tap_layer:
+                tap = h
+        h = apply_norm(self.cfg, self.final_norm, h)
+        loss, n_tok = _chunked_ce(self.cfg, self._unembed_table(), h,
+                                  batch["labels"])
+        aux = {"aux_loss": torch.zeros((), device=loss.device), "tap": tap,
+               "n_tok": n_tok}
+        return loss, aux
+
+    def forward(self, batch: dict):
+        """The module call is the training forward (``forward_train``): it
+        is what ``torch.func.functional_call`` runs with the masters."""
+        return self.forward_train(batch)
+
+    def forward_all_taps(self, batch: dict):
+        """Profiling pass (paper Section 3.1: embeddings of every layer):
+        the hidden state after every layer, (num_layers, B, S, d), with
+        train-path semantics and no loss."""
+        return torch.stack(list(self._train_trunk(batch["tokens"])))
 
     # ------------------------------------------------------------------
     # Cache
@@ -272,8 +364,39 @@ class Model(nn.Module):
         return torch.stack(toks, 1), cache, torch.stack(probs, 1), emitted
 
 
+def _ce_chunk(cfg: ModelConfig, table, hc, lc):
+    """Masked NLL sum and label count of one sequence chunk."""
+    logits = unembed(cfg, table, hc)                       # (B,chunk,V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc.clamp_min(0).long()[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def _chunked_ce(cfg: ModelConfig, table, h, labels, chunk: int = 256):
+    """Cross-entropy without materializing (B,S,V) logits: a loop over
+    sequence chunks (the chunk halves until it divides S, as in the
+    reference). With grad on each chunk is recomputed in the backward, so
+    the backward holds one chunk's logits at a time. Returns (mean loss
+    over labels >= 0, number of such labels)."""
+    B, S, _ = h.shape
+    while S % chunk:
+        chunk //= 2
+    nll = torch.zeros((), device=h.device)
+    n = torch.zeros((), device=h.device)
+    for c0 in range(0, S, chunk):
+        args = (cfg, table, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            nll_c, n_c = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            nll_c, n_c = _ce_chunk(*args)
+        nll = nll + nll_c
+        n = n + n_c
+    return nll / n.clamp_min(1.0), n
+
+
 # ---------------------------------------------------------------------------
-# Weights from the reference package
+# Weights to and from the reference package
 # ---------------------------------------------------------------------------
 
 def _to_torch(x) -> torch.Tensor:
@@ -314,42 +437,38 @@ def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_npz(path) -> dict:
-    """Read a checkpoint in the reference's flat ``.npz`` layout.
+def params_to_jax(cfg: ModelConfig, params: dict) -> dict:
+    """The inverse of ``params_from_jax``: the reference parameter tree
+    (the structure of its ``Model.init`` output) from this model's state
+    dict or float32 masters. Per-layer entries are stacked back into one
+    leaf per run and pattern position; leaves stay torch tensors.
+    ``training.checkpoint.save`` writes the tree in the reference's
+    ``.npz`` format."""
+    tree = {"embed": params["embed"],
+            "final_norm": {"scale": params["final_norm"]}}
+    if "unembed" in params:
+        tree["unembed"] = params["unembed"]
+    slots = tfm.layer_slots(cfg)
+    layers = []
+    for ri, (kinds, _) in enumerate(tfm.split_runs(cfg)):
+        sub = []
+        for j in range(len(kinds)):
+            lis = [li for li, (r, jj, _) in enumerate(slots)
+                   if (r, jj) == (ri, j)]          # in block order
 
-    Keys are ``/``-joined paths; ``__len__``/``__tuple__`` markers rebuild
-    lists and tuples; bfloat16 leaves are stored as uint16 views under a
-    ``::bf16`` suffix and come back as ``torch.bfloat16`` tensors. Other
-    leaves come back as torch tensors too. Uses numpy alone.
-    """
-    with np.load(path) as z:
-        flat = {}
-        for key in z.files:
-            if key.endswith("::bf16"):
-                flat[key[:-6]] = torch.from_numpy(
-                    z[key].astype(np.uint16)).view(torch.bfloat16)
-            else:
-                flat[key] = torch.from_numpy(np.array(z[key]))
-    root: dict = {}
-    meta: dict = {}
-    for key, val in flat.items():
-        parts = key.split("/")
-        if parts[-1] in ("__len__", "__tuple__"):
-            meta["/".join(parts[:-1]) + "/" + parts[-1]] = val
-            continue
-        node = root
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = val
-
-    def fix(node, prefix=""):
-        if not isinstance(node, dict):
-            return node
-        n_key = f"{prefix}__len__"
-        if n_key in meta:
-            seq = [fix(node[str(i)], f"{prefix}{i}/")
-                   for i in range(int(meta[n_key]))]
-            return tuple(seq) if bool(meta[f"{prefix}__tuple__"]) else seq
-        return {k: fix(v, f"{prefix}{k}/") for k, v in node.items()}
-
-    return fix(root)
+            def stack(name, lis=lis):
+                return torch.stack([params[f"layers.{li}.{name}"]
+                                    for li in lis])
+            attn = {name: stack(name)
+                    for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+                    if f"layers.{lis[0]}.{name}" in params}
+            sub.append({"norm1": {"scale": stack("norm1")},
+                        "attn": attn,
+                        "norm2": {"scale": stack("norm2")},
+                        "mlp": {name: stack(name)
+                                for name in ("w_gate", "w_up", "w_down")}})
+        layers.append(tuple(sub))
+    tree["layers"] = tuple(layers)
+    tree["probe"] = {name: params[f"probe.{name}"]
+                     for name in ("w1", "b1", "w2", "b2")}
+    return tree

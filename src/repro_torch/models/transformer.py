@@ -120,6 +120,19 @@ class Block(nn.Module):
         self.w_down = param(ff, d, dtype=cd)
 
 
+def block_train(cfg: ModelConfig, kind: str, p, h):
+    """Training-path block (no cache): causal self-attention over the whole
+    sequence, then the gated MLP. h: (B,S,d) -> (B,S,d). ``p`` is a
+    ``Block`` or any object holding its weights as attributes."""
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    hn = apply_norm(cfg, p.norm1, h)
+    h = h + attn.self_attention_full(cfg, p, hn,
+                                     window=_kind_window(cfg, kind))
+    return h + gated_mlp(apply_norm(cfg, p.norm2, h), p.w_gate, p.w_up,
+                         p.w_down)
+
+
 def block_cached(cfg: ModelConfig, kind: str, p: Block, h, cache_l, q_pos,
                  block_table=None):
     """Cached-path block (prefill chunk or decode). Returns (h, cache_l).

@@ -1,5 +1,5 @@
 """The port's kernels against the reference: paged and slot-cache
-flash-decode, and the fused probe step.
+flash-decode, the fused probe step, and full-sequence flash attention.
 
 On the CPU the port's wrappers (``repro_torch.kernels.ops``) run the plain
 PyTorch versions; they are held against the JAX package's ``ref.py`` and
@@ -10,8 +10,9 @@ rows. The ``cuda``-marked cases hold each CUDA kernel against its plain
 version and skip where there is no card.
 
 The interpret-mode Pallas kernels (slow to compile) are run for every
-float32 case and for the bfloat16 cases with inactive rows; every case
-is held against the reference ``ref.py``.
+float32 case and for the bfloat16 cases with inactive rows (every
+``flash_attention`` case); every case is held against the reference
+``ref.py``.
 
 Tolerance: ``TOL`` of ``tests/test_kernels.py`` (max absolute error,
 2e-5 in float32, 2e-2 in bfloat16 — one bf16 rounding of an O(1) output),
@@ -38,6 +39,7 @@ def jx():
     jax = pytest.importorskip("jax")
     from repro.kernels import ref
     from repro.kernels.decode_attention import decode_attention
+    from repro.kernels.flash_attention import flash_attention
     from repro.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_multi)
     from repro.kernels.probe import probe_update
@@ -46,6 +48,9 @@ def jx():
         jnp=jax.numpy, pallas_single=paged_decode_attention,
         pallas_multi=paged_decode_attention_multi,
         pallas_decode=decode_attention, pallas_probe=probe_update,
+        pallas_flash=flash_attention,
+        ref_flash=jax.jit(ref.flash_attention_ref,
+                          static_argnames=("causal",) + static),
         ref_decode=jax.jit(ref.decode_attention_ref, static_argnames=static),
         # the reference oracles, compiled once per shape (eager is slower)
         ref_single=jax.jit(ref.paged_decode_attention_ref,
@@ -190,6 +195,9 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     before = dict(ops.launches)
     got = ops.paged_decode_attention_multi(*th)
     assert torch.equal(got, tref.paged_decode_attention_multi_ref(*th))
+    q, k, v = torch_inputs(flash_fixture(3, 2, 24, 4, 2, 32), "float32")
+    got = ops.flash_attention(q, k, v, window=8)
+    assert torch.equal(got, tref.flash_attention_ref(q, k, v, window=8))
     assert ops.launches == before          # no kernel launched on the CPU
 
 
@@ -378,3 +386,91 @@ def test_cuda_probe_update_matches_plain(B, tap_dtype, fallback):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-5
+
+
+def flash_fixture(seed, B, S, H, KH, hd):
+    """q (B,S,H,hd), k/v (B,S,KH,hd): standard normal (numpy, float32)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)))
+
+
+FLASH = [  # B, S, H, KH, hd, window, softcap (tests/test_kernels.py sweep)
+    (2, 64, 4, 2, 32, 0, 0.0),
+    (1, 100, 4, 1, 64, 0, 0.0),      # MQA + ragged S
+    (2, 128, 8, 8, 32, 32, 0.0),     # MHA + sliding window
+    (1, 96, 4, 2, 32, 0, 50.0),      # softcap
+    (2, 80, 4, 2, 32, 24, 30.0),     # window + softcap
+    (2, 40, 6, 2, 32, 0, 0.0),       # G=3 (trail-llama's 12/4 heads)
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KH,hd,win,cap", FLASH)
+def test_flash_attention(jx, B, S, H, KH, hd, win, cap, dtype):
+    """Causal: the port's plain version against the reference oracle and
+    its Pallas kernel in interpret mode (blocks of 32, as in
+    ``tests/test_kernels.py``)."""
+    arrays = flash_fixture(B * 1000 + S + H, B, S, H, KH, hd)
+    th, ja = torch_inputs(arrays, dtype), jax_inputs(jx, arrays, dtype)
+    got = ops.flash_attention(*th, window=win, softcap=cap)
+    assert got.dtype == th[0].dtype and got.shape == th[0].shape
+    tol = max(TOL[dtype], 1e-4)
+    want = jx.ref_flash(*ja, window=win, softcap=cap)
+    assert max_err(got, want) < tol
+    kern = jx.pallas_flash(*ja, window=win, softcap=cap, block_q=32,
+                           block_k=32, interpret=True)
+    assert max_err(got, kern) < tol
+
+
+def test_flash_attention_non_causal_never_counts_padding(jx):
+    """Non-causal at S=200: the port follows the reference oracle. The
+    reference's Pallas kernel, at its default blocks of 128, pads K/V with
+    zeros to 256 keys and masks the padding only through the causal test,
+    so without it the zero keys join the softmax (ROADMAP Queue 3)."""
+    arrays = flash_fixture(0, 1, 200, 4, 2, 64)
+    th, ja = torch_inputs(arrays, "float32"), jax_inputs(jx, arrays,
+                                                         "float32")
+    got = ops.flash_attention(*th, causal=False)
+    assert max_err(got, jx.ref_flash(*ja, causal=False)) < TOL["float32"]
+    kern = jx.pallas_flash(*ja, causal=False, interpret=True)
+    assert max_err(kern, jx.ref_flash(*ja, causal=False)) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KH,hd,win,cap,causal", [
+    (2, 100, 4, 1, 64, 0, 0.0, True),
+    (2, 80, 4, 2, 32, 24, 30.0, True),
+    (2, 300, 12, 4, 64, 0, 0.0, True),        # trail-llama heads
+    (1, 257, 32, 8, 128, 0, 0.0, True),       # granite heads
+    (1, 600, 16, 8, 256, 128, 50.0, True),    # gemma2 local
+    (1, 200, 4, 2, 64, 0, 0.0, False),        # non-causal, ragged
+])
+def test_cuda_flash_attention_matches_plain(B, S, H, KH, hd, win, cap,
+                                            causal, dtype):
+    """On a card: the kernel against its plain version, and the
+    ``FlashAttention`` Function's gradients against plain autograd."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import flash_attention as kern
+    from repro_torch.models.attention import FlashAttention
+    q, k, v = (t.cuda() for t in torch_inputs(
+        flash_fixture(S + hd, B, S, H, KH, hd), dtype))
+    got = kern.flash_attention(q, k, v, causal=causal, window=win,
+                               softcap=cap)
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=win,
+                                    softcap=cap)
+    torch.cuda.synchronize()
+    tol = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if causal:
+        dout = torch.randn_like(q)
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        g_fn = torch.autograd.grad(
+            FlashAttention.apply(*ins, win, cap), ins, dout)
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        g_plain = torch.autograd.grad(tref.flash_attention_ref(
+            *ins, window=win, softcap=cap), ins, dout)
+        for a, b in zip(g_fn, g_plain):
+            assert float((a.float() - b.float()).abs().max()) <= tol
