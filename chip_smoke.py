@@ -17,22 +17,32 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    cache, and a wrapped 4096-slot ring with window 4096), ``gemma3-1b``
    (one KV head, window 512) and ``granite-3-8b``; ``probe_update`` at
    ``gemma2-9b`` width, 16 rows and 1, bfloat16 and float32 taps, with a
-   row whose posterior sums to 0 (the prior fallback). Tolerances, per
+   row whose posterior sums to 0 (the prior fallback); ``ssd_scan`` at
+   the shapes of ``tests/test_kernels.py``, of ``mamba2-370m`` (16 x 256,
+   32 heads of 64, state 128, chunk 128) and ``hymba-1.5b`` (50 heads,
+   state 16) and at the L=8 bucket, all from a nonzero initial state,
+   plus rows whose tail has dt = 0 (their state equals the shorter
+   scan's) and a scan in two halves (equal to one scan). Tolerances, per
    element: float32 |kernel - plain| <= 1e-5; bfloat16 at most 2e-2 and
    at most one bf16 rounding of the output, 2**-7 * |plain| + 1e-4 (both
    versions compute in float32 and round once); probe outputs
    (probabilities, always float32) 1e-5, as float32 sums over 3584 and
-   512 terms are taken in another order;
+   512 terms are taken in another order; ``ssd_scan``'s outputs (float32
+   for either input type, from the same rounded inputs) 1e-5 of the
+   output's scale, max(1, max |plain|), as its sums over up to 128
+   terms are taken in another order;
 4. time each kernel at its path's shapes with CUDA events, beside its
    plain version, the least time the card could take (its bound) and one
    PyTorch library call computing the same function as a yardstick
    (``scaled_dot_product_attention`` with the same mask; none exists for
    ``probe_update``, whose w1 fits in L2, so it is timed with L2 flushed
-   before every call);
+   before every call, nor for ``ssd_scan``);
 5. hold the model on the card against the same weights on the CPU in
-   float32: ``granite-smoke`` (paged) and ``gemma2-smoke`` (contiguous and
-   paged), two prefill chunks (24 and 20 tokens, so gemma2-smoke's rings
-   of 16 wrap) and a megastep: greedy tokens equal, logits within 1e-4;
+   float32: ``granite-smoke`` (paged), ``gemma2-smoke`` (contiguous and
+   paged), ``mamba2-smoke`` and ``hymba-smoke`` (contiguous), two
+   prefill chunks (24 and 20 tokens, so the rings of 16 wrap; one row
+   padded in the first) and a megastep with an inactive row: greedy
+   tokens equal, logits within 1e-4;
 6. serve ``granite-3-8b`` at full width (40 layers, random weights from a
    seed) through ``run_policy(mode="real", kv_layout="paged",
    policy="trail", probe_interval=4)`` with the probe predictor; step a
@@ -65,7 +75,7 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     binds): ``forward_train`` loss and tap, every parameter's gradient,
     and one ``train_lm`` step;
 12. profile ``granite-3-8b`` at full width and depth on its served model:
-    harvest 8 batches of 8 x 512 tokens of tap embeddings with
+    harvest 4 batches of 8 x 512 tokens of tap embeddings with
     ``harvest_probe_data`` and train a probe on them (printed, not gated:
     the weights are random);
 13. one ``gemma2-9b`` ``forward_train`` at B=1, S=4608 (past the 4096-token
@@ -78,7 +88,18 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     file read back with ``load_npz``; then harvest its taps, check
     ``forward_all_taps``, train the probe (its MAE below the
     uniform prior's), serve 12 requests with that probe under
-    ``policy="trail"``, and profile one train step.
+    ``policy="trail"``, and profile one train step;
+15. serve ``mamba2-370m`` at full width and depth (48 SSM layers, random
+    weights from seed 0) through ``run_policy(mode="real",
+    kv_layout="contig", ...)``: 12 requests, two with prompts of about
+    4000 tokens that carry the state over 16 chunks; check that every
+    request finished, that ``ssd_scan`` ran 48 times per prefill chunk
+    and that nothing is NaN; profile one decode megastep and one
+    prefill chunk; harvest 8 batches of 8 x 512 tap embeddings;
+16. the same for ``hymba-1.5b`` (32 hybrid layers: 1024-token windowed
+    attention beside the SSM), two prompts past the window so the rings
+    wrap: ``ssd_scan`` 32 times per prefill chunk, ``decode_attention``
+    32 times per decode step.
 
 Every kernel launch count is set to 0 just before a path is driven and
 read just after it; launches made to compare a kernel with its plain
@@ -401,6 +422,64 @@ def slot_library_call(case, window):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
 
+def ssd_case(torch, *, B, L, nh, hp, N, dtype, seed, decay):
+    """x (B,L,nh,hp), dt (B,L,nh) post-softplus, A (nh,) negative, Bm/Cm
+    (B,L,N) and an initial state (B,nh,hp,N), drawn with numpy as
+    ``tests/test_torch_kernels.py`` draws them; x, Bm and Cm cast to
+    ``dtype`` on the card. ``decay`` scales A (small: the state carries
+    across chunks)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    arrays = dict(
+        x=rng.standard_normal((B, L, nh, hp)).astype(f),
+        dt=np.log1p(np.exp(rng.standard_normal((B, L, nh)))).astype(f),
+        A=(-np.exp(rng.standard_normal(nh) * 0.3) * decay).astype(f),
+        Bm=rng.standard_normal((B, L, N)).astype(f),
+        Cm=rng.standard_normal((B, L, N)).astype(f),
+        init_state=(0.5 * rng.standard_normal((B, nh, hp, N))).astype(f))
+    case = {k: torch.from_numpy(a).to("cuda") for k, a in arrays.items()}
+    for k in ("x", "Bm", "Cm"):
+        case[k] = case[k].to(getattr(torch, dtype))
+    return case
+
+
+def ssd_bound(case, chunk, dtype):
+    """Bytes: x, dt, A, Bm, Cm and the initial state read once, y and the
+    final state (float32) written once. Operations per (row, head, chunk
+    of Q): 2*N and 2*hp per (t, s <= t) pair for C B^T and M x, 2*N*hp per
+    position for the readout from the state and again for its update."""
+    x, Bm = case["x"], case["Bm"]
+    B, L, nh, hp = x.shape
+    N = Bm.shape[-1]
+    nbytes = (sum(t.numel() * t.element_size() for t in case.values())
+              + 4 * (x.numel() + B * nh * hp * N))
+    pairs = chunk * (chunk + 1) // 2
+    ops = B * nh * (L // chunk) * (2 * pairs * (N + hp)
+                                   + 4 * chunk * N * hp)
+    return bound_ms(nbytes, ops, dtype)
+
+
+def compare_ssd(label, got, want, parts=("y", "state")):
+    """``ssd_scan``'s outputs (y, final state) against its plain version:
+    max |kernel - plain| within 1e-5 of max(1, max |plain|). Returns the
+    max absolute error."""
+    worst = 0.0
+    for part, a, b in zip(parts, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"ssd_scan {part}: {a.dtype}{tuple(a.shape)} vs "
+                 f"{b.dtype}{tuple(b.shape)}")
+        err = float((a - b).abs().max())
+        scale = max(1.0, float(b.abs().max()))
+        log(f"[check] {'ssd_scan ' + part:30s} {label}: max|kernel-plain|="
+            f"{err:.3e} of scale {scale:.1f} (tol 1e-5 of scale)")
+        if not err <= 1e-5 * scale:
+            fail(f"ssd_scan {part} disagrees with its plain version "
+                 f"({label}): {err} of scale {scale}")
+        worst = max(worst, err)
+    return worst
+
+
 def compare(name, label, got, want, dtype):
     """Max |kernel - plain| and the elements past one bf16 rounding; fails
     on a dtype or shape mismatch or a disagreement."""
@@ -502,6 +581,15 @@ FLASH_CASES = [  # label, B, S, H, KH, hd, window, softcap, causal
     ("gemma3-1b local", 2, 1024, 4, 1, 256, 512, 0.0, True),
 ]
 
+SSD_CASES = [  # label, B, L, nh, hp, N, chunk, decay of A
+    ("sweep", 2, 64, 4, 32, 16, 16, 1.0),
+    ("sweep", 1, 128, 2, 64, 32, 32, 1.0),
+    ("sweep", 2, 96, 3, 32, 8, 32, 1.0),
+    ("mamba2-370m", 16, 256, 32, 64, 128, 128, 0.05),
+    ("hymba-1.5b", 16, 256, 50, 64, 16, 128, 0.05),
+    ("L=8 bucket", 16, 8, 32, 64, 128, 8, 0.05),
+]
+
 FLASH_TIMED = {  # arch: B, S, H, KH, hd, window, softcap (bf16)
     "trail-llama": (8, 512, 12, 4, 64, 0, 0.0),
     "granite-3-8b": (8, 512, 32, 8, 128, 0, 0.0),
@@ -555,6 +643,64 @@ def phase_check_flash(torch):
             compare("FlashAttention." + name,
                     f"B={B} S={S} H={H} KH={KH} hd={hd} window={window} "
                     f"softcap={cap:2.0f} {dtype}", a, b, dtype)
+    return worst
+
+
+def phase_check_ssd(torch):
+    """``ssd_scan`` against its plain version from an initial state, both
+    input types; rows whose tail has dt = 0 end in the shorter scan's
+    state; a scan in two halves equals one. Returns the worst error at
+    mamba2-370m's bf16 shape (the one its row in the JSON line times)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    worst = 0.0
+    for i, (label, B, L, nh, hp, N, chunk, decay) in enumerate(SSD_CASES):
+        for dtype in ("float32", "bfloat16"):
+            case = ssd_case(torch, B=B, L=L, nh=nh, hp=hp, N=N, dtype=dtype,
+                            seed=i, decay=decay)
+            got = ssd.ssd_scan(**case, chunk=chunk)
+            want = ref.ssd_scan_ref(**case, chunk=chunk)
+            torch.cuda.synchronize()
+            err = compare_ssd(f"{label:12s} {dtype:8s} B={B} L={L} nh={nh} "
+                              f"hp={hp} N={N} chunk={chunk}", got, want)
+            if label == "mamba2-370m" and dtype == "bfloat16":
+                worst = err
+            del case, got, want
+    # mamba2's shape: rows 0-3 idle (dt = 0) from position 128 (a whole
+    # chunk), rows 4-7 from position 100; their states against the scan of
+    # the positions before (bit for bit against the kernel's: dt = 0 adds
+    # exactly nothing to the in-order cumsum or to the state)
+    case = ssd_case(torch, B=16, L=256, nh=32, hp=64, N=128,
+                    dtype="bfloat16", seed=20, decay=0.05)
+    case["dt"][:4, 128:] = 0.0
+    case["dt"][4:8, 100:] = 0.0
+    _, s = ssd.ssd_scan(**case, chunk=128)
+    for rows, n in ((slice(0, 4), 128), (slice(4, 8), 100)):
+        part = {k: (v[rows, :n].contiguous() if k != "A" else v)
+                for k, v in case.items() if k != "init_state"}
+        part["init_state"] = case["init_state"][rows].contiguous()
+        _, s_short = ssd.ssd_scan(**part, chunk=n)
+        _, s_plain = ref.ssd_scan_ref(**part, chunk=n)
+        torch.cuda.synchronize()
+        compare_ssd(f"rows idle from {n} vs the {n}-position scan",
+                    (s[rows],), (s_plain,), parts=("state",))
+        same = bool(torch.equal(s[rows], s_short))
+        log(f"[check] ssd_scan idle tail from {n}: state bit-equal to the "
+            f"kernel's {n}-position scan: {same}")
+        if not same:
+            fail(f"ssd_scan: positions with dt = 0 from {n} on changed the "
+                 f"state")
+    # a scan in two halves, the second from the first's final state
+    y, s = ssd.ssd_scan(**case, chunk=128)
+    first = {k: (v[:, :128].contiguous() if v.dim() > 1 and k != "init_state"
+                 else v) for k, v in case.items()}
+    second = {k: (v[:, 128:].contiguous() if v.dim() > 1 and k != "init_state"
+                  else v) for k, v in case.items()}
+    y1, second["init_state"] = ssd.ssd_scan(**first, chunk=128)
+    y2, s2 = ssd.ssd_scan(**second, chunk=128)
+    torch.cuda.synchronize()
+    compare_ssd("two halves vs one scan", (torch.cat([y1, y2], 1), s2),
+                (y, s))
     return worst
 
 
@@ -723,6 +869,19 @@ def phase_time(torch):
         "L2 flushed", lambda: probe.probe_update(*args),
         lambda: ref.probe_update_ref(*args), None, probe_bound(case),
         timer=time_cold_ms)
+
+    # ssd_scan: one prefill chunk of a full slot batch, from a carried state
+    from repro_torch.kernels import ssd_scan as ssd
+    for arch, (nh, N) in (("mamba2-370m", (32, 128)),
+                          ("hymba-1.5b", (50, 16))):
+        case = ssd_case(torch, B=16, L=256, nh=nh, hp=64, N=N,
+                        dtype="bfloat16", seed=12, decay=0.05)
+        row(f"ssd_scan[{arch}]", f"B=16 L=256 nh={nh} hp=64 N={N} chunk=128 "
+            f"bf16, initial state",
+            lambda: ssd.ssd_scan(**case, chunk=128),
+            lambda: ref.ssd_scan_ref(**case, chunk=128), None,
+            ssd_bound(case, 128, "bfloat16"), plain_iters=5)
+        del case
     return rows
 
 
@@ -739,10 +898,14 @@ def _model_pair(arch, seed):
 
 def phase_reference(torch):
     """Smoke configs in float32: the model on the card (kernels) against
-    the same weights on the CPU (plain versions). gemma2-smoke's window is
-    16: its prompts (24 tokens, then 20 more) wrap the rings in a chunk."""
+    the same weights on the CPU (plain versions). gemma2-smoke's and
+    hymba-smoke's window is 16: the prompts (24 tokens, then 20 more) wrap
+    the rings in a chunk. Row 1 of the first chunk is padded and row 3
+    sits out the megastep, so the SSM configs also check that padding and
+    inactive rows leave the recurrent state alone on both devices."""
     for arch, layout in (("granite-3-8b", "paged"), ("gemma2-9b", "contig"),
-                         ("gemma2-9b", "paged")):
+                         ("gemma2-9b", "paged"), ("mamba2-370m", "contig"),
+                         ("hymba-1.5b", "contig")):
         cfg, gpu, cpu = _model_pair(arch, seed=7)
         g = torch.Generator().manual_seed(7)
         chunks = [torch.randint(1, cfg.vocab_size, (4, w), generator=g,
@@ -894,9 +1057,10 @@ def _check_cache_finite(torch, cache):
     for key, run in cache.items():
         if key.startswith("run_"):
             for sub in run:
-                for leaf in ("pk", "pv", "k", "v"):
+                for leaf in ("pk", "pv", "k", "v", "ssm_state", "conv_buf"):
                     if leaf in sub and not torch.isfinite(sub[leaf]).all():
-                        fail(f"non-finite values in the KV cache ({key})")
+                        fail(f"non-finite values in the cache ({key} "
+                             f"{leaf})")
 
 
 def _stepped_run(torch, cfg, model, reqs, knobs, pred):
@@ -928,15 +1092,20 @@ def _stepped_run(torch, cfg, model, reqs, knobs, pred):
 def _serve(torch, cfg, model, reqs, knobs, pred):
     """One ``run_policy`` over ``reqs`` with every launch count at 0 just
     before and read just after; checks that every request finished with
-    finite predictions. Returns (launches, decode steps)."""
+    finite predictions. Returns (launches, decode steps, prefill
+    chunks)."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import run_policy
-    steps = [0]
-    decode_step = model.decode_step
+    steps = [0, 0]
+    decode_step, prefill_chunk = model.decode_step, model.prefill_chunk
 
     def counted(*args, **kwargs):
         steps[0] += 1
         return decode_step(*args, **kwargs)
+
+    def counted_prefill(*args, **kwargs):
+        steps[1] += 1
+        return prefill_chunk(*args, **kwargs)
 
     # run_policy serves copies of the requests: the predictor's hooks see
     # them, with the probe's inputs and outputs, which must be finite
@@ -952,7 +1121,7 @@ def _serve(torch, cfg, model, reqs, knobs, pred):
             return out
         return watched
 
-    model.decode_step = counted
+    model.decode_step, model.prefill_chunk = counted, counted_prefill
     pred.on_prefill, pred.on_token = (watch(pred.on_prefill),
                                       watch(pred.on_token))
     torch.cuda.synchronize()
@@ -964,14 +1133,16 @@ def _serve(torch, cfg, model, reqs, knobs, pred):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
-    del model.decode_step, pred.on_prefill, pred.on_token
+    del model.decode_step, model.prefill_chunk, pred.on_prefill, \
+        pred.on_token
     peak = torch.cuda.max_memory_allocated()
     out_tokens = sum(r.true_out_len for r in reqs)
     s = stats.summary()
     log(f"[serve] run_policy(trail, real, {knobs['kv_layout']}, "
         f"probe_interval={knobs['probe_interval']}): "
         f"{len(stats.latencies)}/{len(reqs)} finished, {s['iterations']} "
-        f"engine steps, {steps[0]} decode steps, {s['preemptions']} "
+        f"engine steps, {steps[0]} decode steps, {steps[1]} prefill "
+        f"chunks, {s['preemptions']} "
         f"preemptions, {s['prefilled_tokens']} prefilled tokens, "
         f"{out_tokens} generated tokens")
     log(f"[serve] wall {wall:.3f} s (host clock, ends in synchronize), "
@@ -982,7 +1153,7 @@ def _serve(torch, cfg, model, reqs, knobs, pred):
     if len(stats.latencies) != len(reqs) or len(served) != len(reqs):
         fail("not every request finished")
     _check_requests(torch, cfg, served.values())
-    return launches, steps[0]
+    return launches, steps[0], steps[1]
 
 
 def _load(torch, arch):
@@ -994,11 +1165,14 @@ def _load(torch, arch):
     model = Model(cfg, device="cuda").init(seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    ssm = (f", SSM {nh} heads of {cfg.ssm_head_dim}, state "
+           f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}" if cfg.ssm_state else "")
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}; "
-        f"{n_params / 1e9:.2f} B params (matmul weights bf16) initialised in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}"
+        f"{ssm}; {n_params / 1e9:.2f} B params (matmul weights bf16) "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
     pred = ProbePredictor(cfg.probe, probe_params=model.probe,
                           embed_table=model.embed)
     return cfg, model, pred
@@ -1018,7 +1192,7 @@ def phase_serve_granite(torch):
     knobs = dict(mode="real", kv_layout="paged", probe_interval=4,
                  max_batch=16, max_len=max_len, page_size=16)
     _describe(reqs, max_len)
-    launches, _ = _serve(torch, cfg, model, reqs, knobs, pred)
+    launches, *_ = _serve(torch, cfg, model, reqs, knobs, pred)
     for name in ("paged_decode_attention", "paged_decode_attention_multi"):
         if launches[name] <= 0:
             fail(f"kernel {name} never launched on the main path")
@@ -1033,40 +1207,22 @@ def phase_serve_granite(torch):
     del cache
     gc.collect()
     torch.cuda.empty_cache()
-    phase_harvest(torch, cfg, model, n_batches=8, seed=2, gate=False)
+    # 4 batches: the probe trainer is exercised at full width without
+    # pushing the whole run much past 300 s on a slow host
+    phase_harvest(torch, cfg, model, n_batches=4, seed=2, gate=False)
     return launches
 
 
 def phase_harvest(torch, cfg, model, *, n_batches, seed, gate):
-    """Profile the served model's taps (``harvest_probe_data``: one
-    ``forward_train`` of 8 x 512 tokens per batch under inference mode)
-    and train a probe on them; its MAE against the uniform prior's is
-    gated only where the weights are trained. Returns the probe."""
+    """Profile the served model's taps (``harvest_taps``) and train a probe
+    on them; its MAE against the uniform prior's is gated only where the
+    weights are trained. Returns the probe."""
     import numpy as np
     from repro_torch.core.bins import bin_means
-    from repro_torch.kernels import ops
-    from repro_torch.training.data import DataConfig, harvest_probe_data
     from repro_torch.training.train import (ProbeTrainConfig, probe_mae,
                                             train_probe)
-    dc = DataConfig(vocab=cfg.vocab_size, seq_len=512, batch=8, max_out=448,
-                    seed=seed)
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    taps, rem = harvest_probe_data(model, dc, n_batches)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launches["flash_attention"]
-    log(f"[profile-taps] {cfg.name}: harvest_probe_data over {n_batches} "
-        f"batches of 8 x 512 tokens: {taps.shape[0]} taps of width "
-        f"{taps.shape[1]} in {wall:.3f} s (host clock, ends in "
-        f"synchronize), {n_batches * 8 * 512 / wall:.0f} tokens/s; "
-        f"flash_attention launches {launches}")
-    if launches != cfg.num_layers * n_batches:
-        fail(f"harvest launched flash_attention {launches} times for "
-             f"{n_batches} forwards of {cfg.num_layers} layers")
-    if not np.isfinite(taps).all():
-        fail(f"{cfg.name}: non-finite tap embeddings")
+    taps, rem = harvest_taps(torch, cfg, model, n_batches=n_batches,
+                             seed=seed)
     t0 = time.perf_counter()
     pp, hist = train_probe(taps, rem, cfg.probe, cfg.d_model,
                            ProbeTrainConfig(epochs=PROBE_EPOCHS),
@@ -1083,6 +1239,41 @@ def phase_harvest(torch, cfg, model, *, n_batches, seed, gate):
         fail(f"{cfg.name}: the trained probe's MAE {mae} is not below the "
              f"uniform prior's {uniform}")
     return pp
+
+
+def harvest_taps(torch, cfg, model, *, n_batches, seed):
+    """``harvest_probe_data`` on the served model: one ``forward_train`` of
+    8 x 512 tokens per batch under inference mode, ``flash_attention`` in
+    every attention layer and ``ssd_scan`` in every SSM layer, each
+    launched once per layer and batch. Returns (taps, remaining)."""
+    import numpy as np
+    from repro_torch.config import KIND_HYBRID, KIND_SSM
+    from repro_torch.kernels import ops
+    from repro_torch.training.data import DataConfig, harvest_probe_data
+    dc = DataConfig(vocab=cfg.vocab_size, seq_len=512, batch=8, max_out=448,
+                    seed=seed)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    taps, rem = harvest_probe_data(model, dc, n_batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kinds = cfg.layer_kinds
+    want = {"flash_attention": n_batches * sum(k != KIND_SSM for k in kinds),
+            "ssd_scan": n_batches * sum(k in (KIND_SSM, KIND_HYBRID)
+                                        for k in kinds)}
+    launches = {k: ops.launches[k] for k in want}
+    log(f"[profile-taps] {cfg.name}: harvest_probe_data over {n_batches} "
+        f"batches of 8 x 512 tokens: {taps.shape[0]} taps of width "
+        f"{taps.shape[1]} in {wall:.3f} s (host clock, ends in "
+        f"synchronize), {n_batches * 8 * 512 / wall:.0f} tokens/s; "
+        f"launches {launches}")
+    if launches != want:
+        fail(f"harvest launched {launches} for {n_batches} forwards of "
+             f"{cfg.num_layers} layers, not {want}")
+    if not np.isfinite(taps).all():
+        fail(f"{cfg.name}: non-finite tap embeddings")
+    return taps, rem
 
 
 def phase_long_forward(torch, cfg, model):
@@ -1192,7 +1383,7 @@ def phase_train(torch):
     _describe(reqs, max_len)
     knobs = dict(mode="real", kv_layout="contig", probe_interval=4,
                  max_batch=16, max_len=max_len, page_size=16)
-    served, _ = _serve(torch, cfg, model, reqs, knobs, pred)
+    served, *_ = _serve(torch, cfg, model, reqs, knobs, pred)
     if served["decode_attention"] <= 0:
         fail("decode_attention never launched serving the trained model")
 
@@ -1219,7 +1410,7 @@ def phase_serve_gemma2(torch, cfg, model, pred):
     knobs = dict(mode="real", kv_layout="contig", probe_interval=4,
                  max_batch=16, max_len=max_len, page_size=16)
     _describe(reqs, max_len)
-    launches, steps = _serve(torch, cfg, model, reqs, knobs, pred)
+    launches, steps, _ = _serve(torch, cfg, model, reqs, knobs, pred)
     if launches["decode_attention"] != cfg.num_layers * steps or not steps:
         fail(f"decode_attention ran {launches['decode_attention']} times "
              f"for {steps} decode steps of {cfg.num_layers} layers")
@@ -1244,6 +1435,47 @@ def phase_serve_gemma2(torch, cfg, model, pred):
             fail(f"kernel {name} never launched on the paged gemma2 path")
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_ssm(torch, arch, long_prompts):
+    """An SSM or hybrid config at full width and depth: the contiguous
+    serve of 12 requests (two with the given long prompts), every prefill
+    chunk through ``ssd_scan`` in every SSM layer and every decode step
+    through ``decode_attention`` in every attention layer; then a profile
+    of one decode megastep and one prefill chunk, and the tap harvest (no
+    probe is trained on it: the weights are random, and the probe trainer
+    runs on granite's and trail-llama's taps). Returns the serve's
+    launches."""
+    from repro_torch.config import KIND_HYBRID, KIND_SSM
+    cfg, model, pred = _load(torch, arch)
+    reqs = _requests(cfg, 10, 0, long_prompts=long_prompts)
+    max_len = _max_len(reqs)
+    knobs = dict(mode="real", kv_layout="contig", probe_interval=4,
+                 max_batch=16, max_len=max_len, page_size=16)
+    _describe(reqs, max_len)
+    launches, steps, chunks = _serve(torch, cfg, model, reqs, knobs, pred)
+    n_ssm = sum(k in (KIND_SSM, KIND_HYBRID) for k in cfg.layer_kinds)
+    n_attn = sum(k != KIND_SSM for k in cfg.layer_kinds)
+    log(f"[serve] ssd_scan ran {launches['ssd_scan']} times in {chunks} "
+        f"prefill chunks of {n_ssm} SSM layers; decode_attention "
+        f"{launches['decode_attention']} times in {steps} decode steps of "
+        f"{n_attn} attention layers")
+    if not chunks or launches["ssd_scan"] != n_ssm * chunks:
+        fail(f"ssd_scan ran {launches['ssd_scan']} times for {chunks} "
+             f"prefill chunks of {n_ssm} SSM layers")
+    if launches["decode_attention"] != n_attn * steps:
+        fail(f"decode_attention ran {launches['decode_attention']} times "
+             f"for {steps} decode steps of {n_attn} attention layers")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = model.init_cache(16, 1024)
+    phase_profile(torch, model, cache)
+    _check_cache_finite(torch, cache)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    harvest_taps(torch, cfg, model, n_batches=8, seed=2)
     return launches
 
 
@@ -1380,6 +1612,7 @@ def main():
     phase_build()
     worst = phase_check(torch)
     worst["flash_attention"] = phase_check_flash(torch)
+    worst["ssd_scan"] = phase_check_ssd(torch)
     rows = phase_time(torch)
     phase_reference(torch)
     phase_reference_train(torch)
@@ -1400,6 +1633,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     trained = phase_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba2 = phase_serve_ssm(torch, "mamba2-370m", (4000, 4100))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_ssm(torch, "hymba-1.5b", (1500, 2000))
 
     kernels = []
     for kname, label, source, replaces, launches in (
@@ -1416,7 +1655,9 @@ def main():
             ("probe_update", "probe_update[gemma2-9b]", "probe.cu",
              "probe.py:55", step_launches),
             ("flash_attention", "flash_attention[trail-llama]",
-             "flash_attention.cu", "flash_attention.py:84", trained)):
+             "flash_attention.cu", "flash_attention.py:84", trained),
+            ("ssd_scan", "ssd_scan[mamba2-370m]", "ssd_scan.cu",
+             "ssd_scan.py:70", mamba2)):
         row = rows[label]
         kernels.append(dict(
             name=kname, route="cuda",

@@ -24,4 +24,7 @@ Kernels:
   flash_attention              — blocked causal or non-causal attention
                                  over full sequences (window, softcap);
                                  the training and profiling forwards
+  ssd_scan                     — the chunked Mamba-2 state-space scan
+                                 from an initial state (SSM and hybrid
+                                 prefill chunks, training forwards)
 """

@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: every kernel source of the package (``csrc/<name>.cu``)
 SOURCES = ("paged_decode_attention", "decode_attention", "probe",
-           "flash_attention")
+           "flash_attention", "ssd_scan")
 
 #: the ``dtype`` code every C entry takes for its floating inputs
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,7 +38,8 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel launches since the last ``reset_launches()``, keyed by kernel;
 #: each binding adds one where it launches its kernel, and nowhere else
 launches = {"paged_decode_attention": 0, "paged_decode_attention_multi": 0,
-             "decode_attention": 0, "probe_update": 0, "flash_attention": 0}
+             "decode_attention": 0, "probe_update": 0, "flash_attention": 0,
+             "ssd_scan": 0}
 
 
 def _build_dir() -> Path:

@@ -14,6 +14,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import probe as _probe
+from repro_torch.kernels import ssd_scan as _ssd
 
 launches = build.launches
 reset_launches = build.reset_launches
@@ -70,3 +71,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                                        softcap=softcap)
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk):
+    """Chunked SSD (Mamba-2) scan from ``init_state`` (None: zeros).
+    x: (B,L,nh,hp); dt: (B,L,nh); A: (nh,); Bm/Cm: (B,L,N) -> (y
+    (B,L,nh,hp), final state (B,nh,hp,N)), both float32. The plain
+    version is differentiable; the kernel raises on an input that
+    requires a gradient."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, init_state, chunk=chunk)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state, chunk=chunk)

@@ -137,3 +137,53 @@ def probe_update_ref(tap, w1, b1, w2, b2, q_prev, T):
     p = torch.softmax(apply_probe({"w1": w1, "b1": b1, "w2": w2, "b2": b2},
                                   tap), dim=-1)
     return bayes_update(q_prev.float(), p, T), p
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, init_state=None, *, chunk: int):
+    """Chunked SSD scan (Mamba-2), the form the reference model computes
+    (``models/ssm.py`` ``ssd_chunked``), all float32 inside.
+
+    x: (B,L,nh,hp); dt: (B,L,nh) post-softplus; A: (nh,) negative; Bm/Cm:
+    (B,L,N) shared by the heads; init_state: (B,nh,hp,N) or None (zeros);
+    ``chunk`` divides L. Per chunk, with cum the inclusive cumsum of dt*A:
+    y_t = sum_{s<=t} (C_t.B_s) exp(cum_t - cum_s) dt_s x_s
+          + exp(cum_t) C_t S^T, and S <- exp(cum_Q) S
+          + sum_s dt_s exp(cum_Q - cum_s) x_s B_s^T.
+    Returns (y (B,L,nh,hp) float32, final state (B,nh,hp,N) float32).
+    A position with dt = 0 leaves the state as it is.
+    """
+    Bsz, L, nh, hp = x.shape
+    N = Bm.shape[-1]
+    if L % chunk:
+        raise ValueError(f"chunk {chunk} does not divide L={L}")
+    nc = L // chunk
+    f32 = torch.float32
+    xr = x.reshape(Bsz, nc, chunk, nh, hp).to(f32)
+    dtr = dt.reshape(Bsz, nc, chunk, nh).to(f32)
+    Br = Bm.reshape(Bsz, nc, chunk, N).to(f32)
+    Cr = Cm.reshape(Bsz, nc, chunk, N).to(f32)
+    cum = torch.cumsum(dtr * A.to(f32), dim=2)            # (B,nc,Q,nh)
+
+    # intra-chunk: exp(cum_t - cum_s) only where s <= t (it overflows above
+    # the diagonal, and inf * 0 would be NaN in the product or its gradient)
+    CB = torch.einsum("bctn,bcsn->bcts", Cr, Br)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,t,s,nh)
+    dec = torch.exp(torch.where(tri[:, :, None], diff, -torch.inf))
+    M = CB[..., None] * dec * dtr[:, :, None, :, :]
+    y_intra = torch.einsum("bctsh,bcshp->bcthp", M, xr)
+
+    # chunk summaries and the recurrence over chunks
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dtr           # (B,nc,Q,nh)
+    Sc = torch.einsum("bcsh,bcshp,bcsn->bchpn", w, xr, Br)
+    chunk_dec = torch.exp(cum[:, :, -1, :])                # (B,nc,nh)
+    S = (torch.zeros((Bsz, nh, hp, N), dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    S_prev = []
+    for c in range(nc):
+        S_prev.append(S)
+        S = chunk_dec[:, c, :, None, None] * S + Sc[:, c]
+    S_prev = torch.stack(S_prev, dim=1)                    # (B,nc,nh,hp,N)
+    y_inter = torch.einsum("bctn,bcth,bchpn->bcthp", Cr, torch.exp(cum),
+                           S_prev)
+    return (y_intra + y_inter).reshape(Bsz, L, nh, hp), S

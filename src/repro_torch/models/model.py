@@ -1,4 +1,5 @@
-"""The model: a dense GQA decoder with the fused TRAIL probe.
+"""The model: a decoder (GQA attention, Mamba-2 SSM or hybrid layers) with
+the fused TRAIL probe.
 
 ``Model(cfg, device=...)`` is an ``nn.Module`` with one ``Block`` per layer
 and exposes the forward passes of the reference
@@ -19,10 +20,12 @@ and exposes the forward passes of the reference
 The parameters live on the model, so no method takes them; training runs
 ``forward_train`` (the module's ``forward``) through
 ``torch.func.functional_call`` with float32 masters in their place. The
-cache is updated in place and also returned. Global (``KIND_ATTN``) and
-sliding-window (``KIND_LOCAL``) attention stacks are ported, so the gemma
-configs run; any other layer kind, ``kv_quant``, cross-attention and
-prefix embeds raise ``NotImplementedError``.
+cache is updated in place and also returned. Global (``KIND_ATTN``),
+sliding-window (``KIND_LOCAL``), Mamba-2 (``KIND_SSM``) and hybrid
+(``KIND_HYBRID``) stacks are ported, with learned positions, so the gemma,
+mamba2 and hymba configs run; MoE layers, ``kv_quant``, cross-attention
+and prefix embeds raise ``NotImplementedError``. The SSM layers have no
+gradient on the card yet (their kernel raises when asked for one).
 
 ``params_from_jax`` and ``load_npz`` bring the reference package's weights
 across (as numpy arrays or from its ``.npz`` checkpoint format) without
@@ -38,12 +41,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import KIND_HYBRID, KIND_SSM, ModelConfig
 from repro_torch.core import predictor
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, embed_tokens, pdtype,
                                        unembed)
 from repro_torch.training.checkpoint import load_npz  # noqa: F401 (re-export)
+
+MAX_LEARNED_POS = 32768     # rows of the learned-position table
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -58,9 +63,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: cross-attention is not ported")
     if cfg.num_prefix_tokens:
         raise NotImplementedError(f"{cfg.name}: prefix embeds are not ported")
-    if not cfg.use_rope:
-        raise NotImplementedError(f"{cfg.name}: learned positions are not "
-                                  "ported")
     if cfg.family == "audio":
         raise NotImplementedError(f"{cfg.name}: LayerNorm is not ported")
 
@@ -68,9 +70,9 @@ def _check_supported(cfg: ModelConfig) -> None:
 class Model(nn.Module):
     """Cached forward passes over one ``ModelConfig`` (see module docstring).
 
-    Decode attention (both layouts) and paged prefill attention go through
-    ``repro_torch.kernels.ops``: the CUDA kernels for tensors on the card,
-    their plain versions on the CPU.
+    Decode attention (both layouts), paged prefill attention and the SSM
+    layers' chunked scan go through ``repro_torch.kernels.ops``: the CUDA
+    kernels for tensors on the card, their plain versions on the CPU.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -91,9 +93,11 @@ class Model(nn.Module):
         self.embed = param(V, d, dtype=pd)
         if not cfg.tie_embeddings:
             self.unembed = param(V, d, dtype=pd)
+        if not cfg.use_rope:        # learned positions
+            self.pos_embed = param(MAX_LEARNED_POS, d, dtype=pd)
         self.final_norm = param(d, dtype=pd)
-        self.layers = nn.ModuleList(tfm.Block(cfg, self.device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(tfm.make_block(cfg, kind, self.device)
+                                    for kind in cfg.layer_kinds)
         pc = cfg.probe
         self.probe = nn.ParameterDict({
             "w1": param(d, pc.hidden), "b1": param(pc.hidden),
@@ -107,9 +111,11 @@ class Model(nn.Module):
         from one seeded generator on the model's device.
 
         The distributions are the reference's (``model.py`` init): embedding
-        rows N(0, 0.02^2); projections N(0, 1/fan_in) with ``wo`` and
-        ``w_down`` at their own fan-in; zero norm gains and biases; probe
-        weights N(0, 1/fan_in).
+        and learned-position rows N(0, 0.02^2); projections N(0, 1/fan_in)
+        with ``wo``, ``w_down`` and the SSM's ``out_proj`` at their own
+        fan-in; the SSM's ``conv_w`` N(0, 1/W), its ``D`` ones and its
+        ``conv_b``, ``dt_bias``, ``A_log`` and ``norm_scale`` zeros; zero
+        norm gains and biases; probe weights N(0, 1/fan_in).
         """
         cfg = self.cfg
         dev = self.device
@@ -127,11 +133,24 @@ class Model(nn.Module):
         yield normal("embed", 0.02)
         if not cfg.tie_embeddings:
             yield normal("unembed", 0.02)
+        if not cfg.use_rope:
+            yield normal("pos_embed", 0.02)
         yield zeros("final_norm")
         d, qd, ff = cfg.d_model, cfg.q_dim, cfg.d_ff
-        for li in range(cfg.num_layers):
+        d_in = cfg.ssm_expand * d
+        for li, kind in enumerate(cfg.layer_kinds):
             pre = f"layers.{li}."
             yield zeros(pre + "norm1")
+            if kind in (KIND_SSM, KIND_HYBRID):
+                yield normal(pre + "in_proj", d ** -0.5)
+                yield normal(pre + "out_proj", d_in ** -0.5)
+                yield normal(pre + "conv_w", cfg.ssm_conv ** -0.5)
+                for name in ("conv_b", "dt_bias", "A_log", "norm_scale"):
+                    yield zeros(pre + name)
+                yield pre + "D", torch.ones(params[pre + "D"].shape,
+                                            dtype=torch.float32, device=dev)
+            if kind == KIND_SSM:
+                continue
             yield zeros(pre + "norm2")
             for w in ("wq", "wk", "wv", "w_gate", "w_up"):
                 yield normal(pre + w, d ** -0.5)
@@ -170,11 +189,22 @@ class Model(nn.Module):
         return types.SimpleNamespace(**dict(
             self.layers[li].named_parameters()))
 
+    def _embed(self, tokens, positions):
+        """Token rows in the compute dtype, plus the learned position rows
+        (positions clipped to the table) where the config has no RoPE."""
+        h = embed_tokens(self.cfg, self.embed, tokens)
+        if not self.cfg.use_rope:
+            idx = positions.clamp(0, self.pos_embed.shape[0] - 1).long()
+            h = h + self.pos_embed[idx].to(h.dtype)
+        return h
+
     def _train_trunk(self, tokens):
         """Yield the hidden state after every layer (B,S,d), train-path
         semantics: causal attention over positions 0..S-1."""
         cfg = self.cfg
-        h = embed_tokens(cfg, self.embed, tokens)
+        S = tokens.shape[1]
+        h = self._embed(tokens, torch.arange(S, device=tokens.device)
+                        .expand(tokens.shape))
         remat = cfg.remat and torch.is_grad_enabled()
         for li, kind in enumerate(cfg.layer_kinds):
             w = self._block_weights(li)
@@ -254,7 +284,7 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # Cached forward (chunked prefill; decode is the S=1 case)
     # ------------------------------------------------------------------
-    def _trunk(self, cache: dict, h, q_pos):
+    def _trunk(self, cache: dict, h, q_pos, decode: bool = False):
         cfg = self.cfg
         block_table = cache.get("block_table")   # present when some run is paged
         tap = None
@@ -262,7 +292,7 @@ class Model(nn.Module):
             sub = cache[f"run_{ri}"][j]
             cache_l = {key: leaf[i] for key, leaf in sub.items()}
             h, _ = tfm.block_cached(cfg, cfg.layer_kinds[li], blk, h, cache_l,
-                                    q_pos, block_table)
+                                    q_pos, block_table, decode=decode)
             if li == self.tap_layer:
                 tap = h
         return h, tap
@@ -286,8 +316,7 @@ class Model(nn.Module):
         q_pos = torch.where(
             valid, offsets[:, None] + torch.arange(C, dtype=torch.int32,
                                                    device=tokens.device), -1)
-        h = embed_tokens(cfg, self.embed, tokens)
-        h, tap = self._trunk(cache, h, q_pos)
+        h, tap = self._trunk(cache, self._embed(tokens, q_pos), q_pos)
         n_new = valid.sum(dim=1, dtype=torch.int32)
         cache["lengths"] = offsets + n_new
 
@@ -302,15 +331,20 @@ class Model(nn.Module):
         return logits, cache, tap_sum, n_new
 
     def _decode(self, cache: dict, tokens, active):
-        """One decode step without the probe: (logits, cache, tap (B,d))."""
+        """One decode step without the probe: (logits, cache, tap (B,d)).
+
+        Inactive rows (q_pos -1) write no K/V, and their SSM state and conv
+        buffer stay as they were: each SSM layer writes ``where(active,
+        new, old)`` in place (the reference's ``_mask_recurrent``), on the
+        device with no host sync."""
         cfg = self.cfg
         B = tokens.shape[0]
         if active is None:
             active = torch.ones(B, dtype=torch.bool, device=tokens.device)
         lengths = cache["lengths"]
         q_pos = torch.where(active, lengths, -1)[:, None]
-        h = embed_tokens(cfg, self.embed, tokens)
-        h, tap = self._trunk(cache, h, q_pos)
+        h, tap = self._trunk(cache, self._embed(tokens, q_pos), q_pos,
+                             decode=True)
         cache["lengths"] = lengths + active.to(torch.int32)
         hn = apply_norm(cfg, self.final_norm, h[:, 0])
         return unembed(cfg, self._unembed_table(), hn), cache, tap[:, 0]
@@ -399,6 +433,12 @@ def _chunked_ce(cfg: ModelConfig, table, h, labels, chunk: int = 256):
 # Weights to and from the reference package
 # ---------------------------------------------------------------------------
 
+_ATTN_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_MLP_NAMES = ("w_gate", "w_up", "w_down")
+_SSM_NAMES = ("in_proj", "out_proj", "conv_w", "conv_b", "dt_bias", "A_log",
+              "D", "norm_scale")
+
+
 def _to_torch(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
@@ -419,19 +459,23 @@ def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
     """
     out = {"embed": _to_torch(tree["embed"]),
            "final_norm": _to_torch(tree["final_norm"]["scale"])}
-    if "unembed" in tree:
-        out["unembed"] = _to_torch(tree["unembed"])
-    names = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+    for name in ("unembed", "pos_embed"):
+        if name in tree:
+            out[name] = _to_torch(tree[name])
     for li, (ri, j, i) in enumerate(tfm.layer_slots(cfg)):
         p = tree["layers"][ri][j]
         pre = f"layers.{li}."
         out[pre + "norm1"] = _to_torch(p["norm1"]["scale"][i])
-        out[pre + "norm2"] = _to_torch(p["norm2"]["scale"][i])
-        for name in names:
-            if name in p["attn"]:
-                out[pre + name] = _to_torch(p["attn"][name][i])
-        for name in ("w_gate", "w_up", "w_down"):
-            out[pre + name] = _to_torch(p["mlp"][name][i])
+        if "attn" in p:
+            out[pre + "norm2"] = _to_torch(p["norm2"]["scale"][i])
+            for name in _ATTN_NAMES:
+                if name in p["attn"]:
+                    out[pre + name] = _to_torch(p["attn"][name][i])
+            for name in _MLP_NAMES:
+                out[pre + name] = _to_torch(p["mlp"][name][i])
+        if "ssm" in p:
+            for name in _SSM_NAMES:
+                out[pre + name] = _to_torch(p["ssm"][name][i])
     for name in ("w1", "b1", "w2", "b2"):
         out[f"probe.{name}"] = _to_torch(tree["probe"][name])
     return out
@@ -446,27 +490,29 @@ def params_to_jax(cfg: ModelConfig, params: dict) -> dict:
     ``.npz`` format."""
     tree = {"embed": params["embed"],
             "final_norm": {"scale": params["final_norm"]}}
-    if "unembed" in params:
-        tree["unembed"] = params["unembed"]
+    for name in ("unembed", "pos_embed"):
+        if name in params:
+            tree[name] = params[name]
     slots = tfm.layer_slots(cfg)
     layers = []
     for ri, (kinds, _) in enumerate(tfm.split_runs(cfg)):
         sub = []
-        for j in range(len(kinds)):
+        for j, kind in enumerate(kinds):
             lis = [li for li, (r, jj, _) in enumerate(slots)
                    if (r, jj) == (ri, j)]          # in block order
 
             def stack(name, lis=lis):
                 return torch.stack([params[f"layers.{li}.{name}"]
                                     for li in lis])
-            attn = {name: stack(name)
-                    for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-                    if f"layers.{lis[0]}.{name}" in params}
-            sub.append({"norm1": {"scale": stack("norm1")},
-                        "attn": attn,
-                        "norm2": {"scale": stack("norm2")},
-                        "mlp": {name: stack(name)
-                                for name in ("w_gate", "w_up", "w_down")}})
+            p = {"norm1": {"scale": stack("norm1")}}
+            if kind != KIND_SSM:
+                p["attn"] = {name: stack(name) for name in _ATTN_NAMES
+                             if f"layers.{lis[0]}.{name}" in params}
+                p["norm2"] = {"scale": stack("norm2")}
+                p["mlp"] = {name: stack(name) for name in _MLP_NAMES}
+            if kind in (KIND_SSM, KIND_HYBRID):
+                p["ssm"] = {name: stack(name) for name in _SSM_NAMES}
+            sub.append(p)
         layers.append(tuple(sub))
     tree["layers"] = tuple(layers)
     tree["probe"] = {name: params[f"probe.{name}"]

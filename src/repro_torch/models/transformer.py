@@ -1,4 +1,5 @@
-"""Decoder blocks and run utilities (``KIND_ATTN`` and ``KIND_LOCAL`` layers).
+"""Decoder blocks and run utilities (attention, sliding-window attention,
+Mamba-2 SSM and hybrid layers).
 
 A "run" is a maximal stretch of layers of one repeating pattern, split
 additionally at the probe tap so the tap always ends a run. The reference
@@ -12,12 +13,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.config import KIND_ATTN, KIND_LOCAL, ModelConfig
+from repro_torch.config import (KIND_ATTN, KIND_HYBRID, KIND_LOCAL, KIND_SSM,
+                                ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm, cdtype, gated_mlp, pdtype
 
 MAX_PATTERN = 8          # longest repeating block grouped as one run
-PORTED_KINDS = (KIND_ATTN, KIND_LOCAL)
+PORTED_KINDS = (KIND_ATTN, KIND_LOCAL, KIND_SSM, KIND_HYBRID)
 
 
 def _segment_runs(kinds: tuple[str, ...]) -> list[tuple[tuple[str, ...], int]]:
@@ -81,29 +84,65 @@ def layer_slots(cfg: ModelConfig) -> list[tuple[int, int, int]]:
 
 
 def _kind_window(cfg: ModelConfig, kind: str) -> int:
-    """Attention window of a layer kind (0 = global attention)."""
-    return cfg.sliding_window if kind == KIND_LOCAL else 0
+    """Attention window of a layer kind (0 = global attention); hybrid
+    layers' attention heads use the sliding window (hymba's SWA heads)."""
+    return cfg.sliding_window if kind in (KIND_LOCAL, KIND_HYBRID) else 0
+
+
+def _param(*shape, dtype, device):
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _add_ssm_params(m: nn.Module, cfg: ModelConfig, device) -> None:
+    """The Mamba-2 mixer's weights, under the reference's names: the two
+    projections in the compute dtype (matmul weights); the conv, dt bias,
+    D and the gated norm's scale in the parameter dtype and ``A_log`` in
+    float32, as the reference uses them."""
+    d = cfg.d_model
+    d_in, nh, conv_ch = ssm_mod.ssm_dims(cfg)
+    cd, pd = cdtype(cfg), pdtype(cfg)
+    m.in_proj = _param(d, 2 * d_in + (conv_ch - d_in) + nh, dtype=cd,
+                       device=device)
+    m.out_proj = _param(d_in, d, dtype=cd, device=device)
+    m.conv_w = _param(cfg.ssm_conv, conv_ch, dtype=pd, device=device)
+    m.conv_b = _param(conv_ch, dtype=pd, device=device)
+    m.dt_bias = _param(nh, dtype=pd, device=device)
+    m.A_log = _param(nh, dtype=torch.float32, device=device)
+    m.D = _param(nh, dtype=pd, device=device)
+    m.norm_scale = _param(d_in, dtype=pd, device=device)
+
+
+class SSMBlock(nn.Module):
+    """One ``KIND_SSM`` block: RMSNorm, then the Mamba-2 mixer (no MLP;
+    the mixer has its own gating). Parameters are created empty."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.norm1 = _param(cfg.d_model, dtype=pdtype(cfg), device=device)
+        _add_ssm_params(self, cfg, device)
 
 
 class Block(nn.Module):
     """One decoder block: RMSNorm, GQA attention, gated MLP.
 
     ``KIND_ATTN`` and ``KIND_LOCAL`` blocks hold the same parameters; a
-    local block attends within the config's sliding window.
+    local block attends within the config's sliding window. A
+    ``KIND_HYBRID`` block (hymba) adds a Mamba-2 mixer that reads the same
+    normed input as its windowed attention.
 
     Matmul weights are held in the compute dtype, norm scales in the
     parameter dtype. Parameters are created empty; ``Model.init`` or
     ``load_state_dict`` fills them.
     """
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", kind=KIND_ATTN):
         super().__init__()
         d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
         cd, pd = cdtype(cfg), pdtype(cfg)
 
         def param(*shape, dtype):
-            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                                requires_grad=False)
+            return _param(*shape, dtype=dtype, device=device)
 
         self.norm1 = param(d, dtype=pd)
         self.wq = param(d, qd, dtype=cd)
@@ -118,39 +157,79 @@ class Block(nn.Module):
         self.w_gate = param(d, ff, dtype=cd)
         self.w_up = param(d, ff, dtype=cd)
         self.w_down = param(ff, d, dtype=cd)
+        if kind == KIND_HYBRID:
+            _add_ssm_params(self, cfg, device)
+
+
+def make_block(cfg: ModelConfig, kind: str, device="cuda") -> nn.Module:
+    """The empty block of a layer kind."""
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    if kind == KIND_SSM:
+        return SSMBlock(cfg, device)
+    return Block(cfg, device, kind=kind)
 
 
 def block_train(cfg: ModelConfig, kind: str, p, h):
     """Training-path block (no cache): causal self-attention over the whole
-    sequence, then the gated MLP. h: (B,S,d) -> (B,S,d). ``p`` is a
-    ``Block`` or any object holding its weights as attributes."""
+    sequence (and, in a hybrid block, the SSM mixer on the same normed
+    input, averaged with it), then the gated MLP; an SSM block is the
+    mixer alone. h: (B,S,d) -> (B,S,d). ``p`` is a block or any object
+    holding its weights as attributes."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     hn = apply_norm(cfg, p.norm1, h)
-    h = h + attn.self_attention_full(cfg, p, hn,
-                                     window=_kind_window(cfg, kind))
+    if kind == KIND_SSM:
+        return h + ssm_mod.ssm_forward(cfg, p, hn)[0]
+    a = attn.self_attention_full(cfg, p, hn, window=_kind_window(cfg, kind))
+    if kind == KIND_HYBRID:
+        a = 0.5 * (a + ssm_mod.ssm_forward(cfg, p, hn)[0])
+    h = h + a
     return h + gated_mlp(apply_norm(cfg, p.norm2, h), p.w_gate, p.w_up,
                          p.w_down)
 
 
-def block_cached(cfg: ModelConfig, kind: str, p: Block, h, cache_l, q_pos,
-                 block_table=None):
+def _ssm_cached(cfg: ModelConfig, p, hn, cache_l, q_pos, decode: bool):
+    """The SSM mixer of one cached layer; its state and conv buffer are
+    updated in place. A prefill chunk advances each row by its valid
+    tokens only (``ssm_forward`` with ``q_pos``); a decode step leaves
+    inactive rows' state as it was."""
+    if decode:
+        y, (st, cb) = ssm_mod.ssm_decode_step(
+            cfg, p, hn, cache_l["ssm_state"], cache_l["conv_buf"])
+        ssm_mod.update_state(cache_l, st, cb, keep=q_pos[:, 0] >= 0)
+    else:
+        y, (st, cb) = ssm_mod.ssm_forward(
+            cfg, p, hn, cache_l["ssm_state"], cache_l["conv_buf"],
+            q_pos=q_pos)
+        ssm_mod.update_state(cache_l, st, cb)
+    return y
+
+
+def block_cached(cfg: ModelConfig, kind: str, p, h, cache_l, q_pos,
+                 block_table=None, decode: bool = False):
     """Cached-path block (prefill chunk or decode). Returns (h, cache_l).
 
     h: (B,S,d); q_pos: (B,S) absolute positions (-1 = inactive slot);
-    cache_l holds this layer's K/V, updated in place: a paged leaf set
-    (``pk``/``pv``/``pkpos``, read through ``block_table``) or a slot
-    cache (``k``/``v``/``kpos``, a ring for windowed layers).
+    cache_l holds this layer's state, updated in place: a paged K/V leaf
+    set (``pk``/``pv``/``pkpos``, read through ``block_table``) or a slot
+    cache (``k``/``v``/``kpos``, a ring for windowed layers), and for SSM
+    and hybrid layers ``ssm_state``/``conv_buf``. ``decode`` (S=1) takes
+    the SSM's recurrent step instead of the chunked scan.
     """
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     hn = apply_norm(cfg, p.norm1, h)
+    if kind == KIND_SSM:
+        return h + _ssm_cached(cfg, p, hn, cache_l, q_pos, decode), cache_l
     if "pk" in cache_l:
         a, cache_l = attn.self_attention_paged(cfg, p, hn, cache_l, q_pos,
                                                block_table)
     else:
         a, cache_l = attn.self_attention_cached(
             cfg, p, hn, cache_l, q_pos, window=_kind_window(cfg, kind))
+    if kind == KIND_HYBRID:
+        a = 0.5 * (a + _ssm_cached(cfg, p, hn, cache_l, q_pos, decode))
     h = h + a
     return h + gated_mlp(apply_norm(cfg, p.norm2, h), p.w_gate, p.w_up,
                          p.w_down), cache_l
@@ -160,16 +239,24 @@ def init_run_cache(cfg: ModelConfig, kind: str, n_layers: int, batch: int,
                    max_len: int, kv_layout: str = "contig",
                    num_pages: int = 0, page_size: int = 0,
                    device="cuda") -> dict:
-    """Allocate the KV cache of one homogeneous layer run.
+    """Allocate the cache of one homogeneous layer run: K/V for attention
+    layers, SSM state and conv buffer for SSM layers, both for hybrid ones.
 
     Windowed runs keep their ring slots even under ``kv_layout="paged"``:
     they are already bounded at the window, so paging buys nothing.
     """
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    cache: dict = {}
     window = _kind_window(cfg, kind)
-    if kv_layout == "paged" and not window:
-        return attn.init_paged_kv_cache(cfg, num_pages, page_size, n_layers,
-                                        device=device)
-    return attn.init_kv_cache(cfg, batch, max_len, n_layers, window=window,
-                              device=device)
+    if kind != KIND_SSM:
+        if kv_layout == "paged" and not window:
+            cache.update(attn.init_paged_kv_cache(
+                cfg, num_pages, page_size, n_layers, device=device))
+        else:
+            cache.update(attn.init_kv_cache(cfg, batch, max_len, n_layers,
+                                            window=window, device=device))
+    if kind in (KIND_SSM, KIND_HYBRID):
+        cache.update(ssm_mod.init_ssm_state(cfg, batch, n_layers,
+                                            device=device))
+    return cache

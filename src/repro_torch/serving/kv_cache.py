@@ -684,16 +684,21 @@ class SlotPool:
 
     def flush_resets(self):
         """Apply pending slot resets on device, in place: ``lengths`` of
-        each dirty slot back to 0 and every slot-cache ``kpos`` row of it
-        (contiguous caches and the rings of windowed layers) to -1, one
+        each dirty slot back to 0, every slot-cache ``kpos`` row of it
+        (contiguous caches and the rings of windowed layers) to -1, and
+        the SSM state and conv buffer of SSM and hybrid layers to 0, one
         ``index_fill_`` per leaf, so that the slot's next request never
-        attends over its predecessor's K/V."""
+        attends over its predecessor's K/V or carries its recurrent
+        state."""
         if not self._dirty:
             return
         idx = torch.tensor(self._dirty, dtype=torch.long, device=self.device)
         self.cache["lengths"].index_fill_(0, idx, 0)
         for sub in _layer_leaves(self.cache, "kpos"):
             sub["kpos"].index_fill_(1, idx, -1)
+        for sub in _layer_leaves(self.cache, "ssm_state"):
+            sub["ssm_state"].index_fill_(1, idx, 0.0)
+            sub["conv_buf"].index_fill_(1, idx, 0.0)
         self._dirty.clear()
 
     # -- accounting --------------------------------------------------------
@@ -708,7 +713,7 @@ class SlotPool:
 
 def _layer_leaves(cache: dict, leaf: str):
     """Every layer run's leaf dict that holds ``leaf`` (``kpos``: slot
-    caches; ``pkpos``: paged K/V)."""
+    caches; ``pkpos``: paged K/V; ``ssm_state``: SSM and hybrid layers)."""
     for key, run in cache.items():
         if key.startswith("run_"):
             for sub in run:

@@ -280,7 +280,7 @@ def test_real_mode_needs_the_paged_layout_and_the_model_device():
         port_engine.Engine(pcfg, port_engine.EngineConfig(
             mode="real", kv_layout="paged"), model=tm, device="cuda")
     with pytest.raises(NotImplementedError):
-        Model(port_smoke_config("mamba2-370m"), device="cpu")
+        Model(port_smoke_config("olmoe-1b-7b"), device="cpu")
 
 
 @pytest.mark.parametrize("kv_layout", ["contig", "paged"])

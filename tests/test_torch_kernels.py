@@ -1,5 +1,6 @@
 """The port's kernels against the reference: paged and slot-cache
-flash-decode, the fused probe step, and full-sequence flash attention.
+flash-decode, the fused probe step, full-sequence flash attention and the
+chunked SSD scan.
 
 On the CPU the port's wrappers (``repro_torch.kernels.ops``) run the plain
 PyTorch versions; they are held against the JAX package's ``ref.py`` and
@@ -43,9 +44,14 @@ def jx():
     from repro.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_multi)
     from repro.kernels.probe import probe_update
+    from repro.kernels.ssd_scan import ssd_scan
+    from repro.models.ssm import ssd_chunked
     static = ("window", "softcap")
     return types.SimpleNamespace(
-        jnp=jax.numpy, pallas_single=paged_decode_attention,
+        jnp=jax.numpy, pallas_ssd=ssd_scan,
+        ref_ssd=jax.jit(ref.ssd_scan_ref),
+        ssd_chunked=jax.jit(ssd_chunked, static_argnames=("chunk",)),
+        pallas_single=paged_decode_attention,
         pallas_multi=paged_decode_attention_multi,
         pallas_decode=decode_attention, pallas_probe=probe_update,
         pallas_flash=flash_attention,
@@ -474,3 +480,132 @@ def test_cuda_flash_attention_matches_plain(B, S, H, KH, hd, win, cap,
             *ins, window=win, softcap=cap), ins, dout)
         for a, b in zip(g_fn, g_plain):
             assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+def ssd_fixture(seed, B, L, nh, hp, N, decay=1.0):
+    """x (B,L,nh,hp), dt (B,L,nh) post-softplus, A (nh,) negative, Bm/Cm
+    (B,L,N) and an initial state (B,nh,hp,N), as ``tests/test_kernels.py``
+    draws them (numpy, float32). ``decay`` scales A: small values carry
+    the state across chunks."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = rng.standard_normal((B, L, nh, hp)).astype(f)
+    dt = np.log1p(np.exp(rng.standard_normal((B, L, nh)))).astype(f)
+    A = (-np.exp(rng.standard_normal(nh) * 0.3) * decay).astype(f)
+    Bm = rng.standard_normal((B, L, N)).astype(f)
+    Cm = rng.standard_normal((B, L, N)).astype(f)
+    s0 = (0.5 * rng.standard_normal((B, nh, hp, N))).astype(f)
+    return x, dt, A, Bm, Cm, s0
+
+
+def rel_err(a, b) -> float:
+    """Max |a - b| over the scale of b (at least 1)."""
+    b = np.asarray(b.float() if isinstance(b, torch.Tensor) else b,
+                   np.float32)
+    return max_err(a, b) / max(1.0, float(np.abs(b).max()))
+
+
+SSD = [  # B, L, nh, hp, N, chunk (tests/test_kernels.py test_ssd_scan)
+    (2, 64, 4, 32, 16, 16),
+    (1, 128, 2, 64, 32, 32),
+    (2, 96, 3, 32, 8, 32),
+]
+
+
+@pytest.mark.parametrize("B,L,nh,hp,N,chunk", SSD)
+def test_ssd_scan(jx, B, L, nh, hp, N, chunk):
+    """The port's plain chunked scan against the reference's sequential
+    oracle and its chunked model scan (both from an initial state), and
+    against its Pallas kernel in interpret mode (zero initial state, the
+    only one it takes). float32, 1e-4 of the output's scale."""
+    x, dt, A, Bm, Cm, s0 = ssd_fixture(L + nh, B, L, nh, hp, N, decay=0.1)
+    th = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, s0)]
+    y, s = ops.ssd_scan(*th, chunk=chunk)
+    assert y.dtype == s.dtype == torch.float32
+    assert y.shape == (B, L, nh, hp) and s.shape == (B, nh, hp, N)
+    ja = [jx.jnp.asarray(a) for a in (x, dt, A, Bm, Cm, s0)]
+    jy, js = jx.ref_ssd(*ja[:5], ja[5])
+    assert rel_err(y, jy) < 1e-4 and rel_err(s, js) < 1e-4
+    jy, js = jx.ssd_chunked(*ja[:5], chunk=chunk, init_state=ja[5])
+    assert rel_err(y, jy) < 1e-4 and rel_err(s, js) < 1e-4
+    y0, s0_ = ops.ssd_scan(*th[:5], chunk=chunk)
+    ky, ks = jx.pallas_ssd(*ja[:5], chunk=chunk, interpret=True)
+    assert rel_err(y0, ky) < 1e-4 and rel_err(s0_, ks) < 1e-4
+
+
+@pytest.mark.parametrize("tail", [8, 32, 40])
+def test_ssd_scan_zero_dt_keeps_the_state(tail):
+    """Positions with dt = 0 leave the state as it was: a scan whose last
+    ``tail`` positions have dt = 0 ends in the state of the scan of the
+    rest (bit for bit when the tail is whole chunks), and a scan with dt = 0
+    throughout returns its initial state exactly."""
+    B, L, nh, hp, N, chunk = 2, 64, 3, 32, 16, 16
+    x, dt, A, Bm, Cm, s0 = (torch.from_numpy(a) for a in ssd_fixture(
+        7, B, L, nh, hp, N, decay=0.1))
+    dt[:, L - tail:] = 0.0
+    _, s = ops.ssd_scan(x, dt, A, Bm, Cm, s0, chunk=chunk)
+    n = L - tail
+    _, s_short = ops.ssd_scan(x[:, :n], dt[:, :n], A, Bm[:, :n], Cm[:, :n],
+                              s0, chunk=8)
+    assert rel_err(s, s_short) < 1e-5
+    if tail % chunk == 0:
+        _, s_same = ops.ssd_scan(x[:, :n], dt[:, :n], A, Bm[:, :n],
+                                 Cm[:, :n], s0, chunk=chunk)
+        assert torch.equal(s, s_same)
+    _, s_idle = ops.ssd_scan(x, torch.zeros_like(dt), A, Bm, Cm, s0,
+                             chunk=chunk)
+    assert torch.equal(s_idle, s0)
+
+
+def test_ssd_scan_continuation():
+    """Scanning [a; b] equals scanning a, then b from a's final state."""
+    x, dt, A, Bm, Cm, _ = (torch.from_numpy(a) for a in ssd_fixture(
+        3, 1, 64, 2, 32, 16, decay=0.1))
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    y1, s1 = ops.ssd_scan(x[:, :32], dt[:, :32], A, Bm[:, :32], Cm[:, :32],
+                          chunk=16)
+    y2, s2 = ops.ssd_scan(x[:, 32:], dt[:, 32:], A, Bm[:, 32:], Cm[:, 32:],
+                          s1, chunk=32)
+    assert rel_err(torch.cat([y1, y2], 1), y) < 1e-5
+    assert rel_err(s2, s) < 1e-5
+
+
+def test_ssd_scan_plain_version_is_differentiable():
+    """On the CPU the plain scan carries gradients (no NaN from the
+    overflowing upper triangle of the decay matrix)."""
+    ins = [torch.from_numpy(a).requires_grad_() for a in ssd_fixture(
+        5, 1, 32, 2, 16, 8)]
+    y, s = ops.ssd_scan(*ins, chunk=16)
+    grads = torch.autograd.grad((y.sum() + s.sum()), ins)
+    assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,nh,hp,N,chunk,decay", [
+    (2, 64, 4, 32, 16, 16, 1.0),
+    (1, 128, 2, 64, 32, 32, 1.0),
+    (2, 96, 3, 32, 8, 32, 1.0),
+    (2, 256, 32, 64, 128, 128, 0.05),      # mamba2-370m
+    (2, 256, 50, 64, 16, 128, 0.05),       # hymba-1.5b
+    (3, 24, 4, 32, 16, 24, 0.1),           # a 24-wide chunk (smoke)
+    (2, 8, 4, 64, 128, 8, 0.1),            # the smallest bucket
+])
+def test_cuda_ssd_scan_matches_plain(B, L, nh, hp, N, chunk, decay, dtype):
+    """On a card: the kernel against its plain version on the same inputs,
+    from an initial state. Both compute in float32 from the same rounded
+    inputs, so bfloat16 is held like float32: 1e-5 of the output's scale
+    (sums over up to 128 terms taken in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import ssd_scan as kern
+    x, dt, A, Bm, Cm, s0 = (torch.from_numpy(a).cuda() for a in ssd_fixture(
+        L + N, B, L, nh, hp, N, decay))
+    tdt = getattr(torch, dtype)
+    x, Bm, Cm = x.to(tdt), Bm.to(tdt), Cm.to(tdt)
+    got = kern.ssd_scan(x, dt, A, Bm, Cm, s0, chunk=chunk)
+    want = tref.ssd_scan_ref(x, dt, A, Bm, Cm, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert rel_err(a.cpu(), b.cpu()) <= 1e-5

@@ -263,19 +263,19 @@ def test_init_is_seeded_with_the_reference_distributions():
 
 @pytest.mark.parametrize("arch", ARCH_IDS + ("trail-llama",))
 def test_only_attention_stacks_are_ported(arch):
-    """Global and sliding-window attention stacks construct (the gemma
-    configs among them); every other layer kind and feature raises."""
+    """Global and sliding-window attention, Mamba-2 and hybrid stacks
+    construct (the gemma, mamba2 and hymba configs among them, learned
+    positions too); every other layer kind and feature raises."""
     cfg = port_smoke_config(arch)
-    supported = (set(cfg.layer_kinds) <= {"attn", "local"}
+    supported = (set(cfg.layer_kinds) <= {"attn", "local", "ssm", "hybrid"}
                  and not cfg.kv_quant and not cfg.cross_attention
-                 and not cfg.num_prefix_tokens and cfg.use_rope
-                 and cfg.family != "audio")
+                 and not cfg.num_prefix_tokens and cfg.family != "audio")
     if supported:
         Model(cfg, device="cpu")
     else:
         with pytest.raises(NotImplementedError):
             Model(cfg, device="cpu")
-    assert supported or not arch.startswith("gemma")
+    assert supported or not arch.startswith(("gemma", "mamba2", "hymba"))
 
 
 def test_init_cache_defaults_to_the_contiguous_layout():
