@@ -8,14 +8,19 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
 1. report the device (name, count, ``nvidia-smi`` name and power limit);
    with no CUDA device, fail;
 2. build every CUDA kernel from the sources in this checkout (one ``nvcc``
-   per source, all at once) and print what ptxas reports;
+   per source, all at once), print the build time and what ptxas reports,
+   and count the ``HGMMA`` (wgmma) instructions ``cuobjdump -sass`` finds
+   in the ``flash_attention`` and ``paged_decode_attention`` libraries
+   (none fails: their bf16 kernels run on the tensor cores);
 3. hold each kernel against its plain PyTorch version on the card, float32
    and bfloat16, with inactive (q_pos = -1) rows and a logit softcap:
    the paged kernels at the shapes of ``granite-3-8b``, ``trail-llama``
    and ``gemma2-9b`` (head_dim 256) with scrambled block tables and null
    pages; ``decode_attention`` at the shapes of ``gemma2-9b`` (a 4608-slot
    cache, and a wrapped 4096-slot ring with window 4096), ``gemma3-1b``
-   (one KV head, window 512) and ``granite-3-8b``; ``probe_update`` at
+   (one KV head, window 512) and ``granite-3-8b``, the multi-query kernel
+   also with pages of 8 and in a prefill batch whose every row tile is
+   inactive but two sequences'; ``probe_update`` at
    ``gemma2-9b`` width, 16 rows and 1, bfloat16 and float32 taps, with a
    row whose posterior sums to 0 (the prior fallback); ``ssd_scan`` at
    the shapes of ``tests/test_kernels.py``, of ``mamba2-370m`` (16 x 256,
@@ -25,7 +30,10 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    scan's) and a scan in two halves (equal to one scan). Tolerances, per
    element: float32 |kernel - plain| <= 1e-5; bfloat16 at most 2e-2 and
    at most one bf16 rounding of the output, 2**-7 * |plain| + 1e-4 (both
-   versions compute in float32 and round once); probe outputs
+   versions compute in float32 and round once), except for the two
+   tensor-core kernels (``flash_attention`` and
+   ``paged_decode_attention_multi`` in bf16), which round P to bf16
+   before P V and are held to ``tc_attention_bound``; probe outputs
    (probabilities, always float32) 1e-5, as float32 sums over 3584 and
    512 terms are taken in another order; ``ssd_scan``'s outputs (float32
    for either input type, from the same rounded inputs) 1e-5 of the
@@ -65,7 +73,9 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     shapes of ``tests/test_kernels.py``, non-causal at S=200, and at the
     path's shapes (trail-llama 8x512 with 12/4 heads, granite 8x512 with
     32/8 heads, a gemma2-9b local layer at S=4608 with window 4096 and
-    softcap 50, a gemma3-1b local layer with window 512), plus the
+    softcap 50, a gemma3-1b local layer with window 512, hymba-1.5b's
+    25/5 heads with window 1024 at S=1500, and granite's heads at S=777,
+    neither a multiple of the key tile), plus the
     ``FlashAttention`` Function's gradients against plain autograd;
     timed in phase 4 at the trail-llama, granite and gemma2 shapes
     (library yardstick: ``scaled_dot_product_attention(is_causal=True,
@@ -133,6 +143,9 @@ PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
             "float32": 67e12}       # float32 outside the tensor cores
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}        # max |kernel - plain|
 ROUNDING = {"float32": None, "bfloat16": (2.0 ** -7, 1e-4)}   # (rel, abs)
+TC_KERNELS = ("flash_attention", "paged_decode_attention_multi")  # bf16: wgmma
+PORT_KERNELS = (r"flash_attention_(tc_)?kernel|paged_multi_(tc_)?kernel|"
+                r"decode_kernel|probe_(hidden|filter)_kernel|ssd_scan_kernel")
 PROBE_TOL = 1e-5
 PAGED_ARGS = ("q", "k_pages", "v_pages", "kpos_pages", "block_table", "q_pos")
 SLOT_ARGS = ("q", "k", "v", "kpos", "q_pos")
@@ -480,23 +493,48 @@ def compare_ssd(label, got, want, parts=("y", "state")):
     return worst
 
 
-def compare(name, label, got, want, dtype):
-    """Max |kernel - plain| and the elements past one bf16 rounding; fails
-    on a dtype or shape mismatch or a disagreement."""
+def tc_attention_bound(plain, magnitude):
+    """Per-element bound on |kernel - plain| for a bf16 result of the
+    tensor-core attention kernels: 2**-7 * A + 2**-7 * |plain| + 1e-4.
+
+    ``magnitude`` is A, the plain version run on |v| (float32): sum_j p_j
+    |v_j| / l, the size of the terms that P multiplies. The kernel rounds
+    P to bf16 before P V, as every flash attention on tensor cores does,
+    and that moves each term p_j v_j by at most 2**-8 of itself, so the
+    output by at most 2**-8 * A; the second factor of 2 is the margin for
+    the online rescaling, a denominator summed from the unrounded P, and
+    float32 sums taken in another order. 2**-7 * |plain| + 1e-4 is the
+    one rounding of the output to bf16 that the other kernels are held
+    to. Where the plain value cancels to near 0, A keeps the bound at the
+    size of what was summed."""
+    return (2.0 ** -7 * magnitude.float() + 2.0 ** -7 * plain.float().abs()
+            + 1e-4)
+
+
+def compare(name, label, got, want, dtype, magnitude=None):
+    """Max |kernel - plain| and the elements past the per-element bound;
+    fails on a dtype or shape mismatch or a disagreement. The bound is one
+    bf16 rounding of the output, or, for the tensor-core kernels' bf16
+    results, ``tc_attention_bound`` with ``magnitude``."""
     if got.dtype != want.dtype or got.shape != want.shape:
         fail(f"{name}: {got.dtype}{tuple(got.shape)} vs "
              f"{want.dtype}{tuple(want.shape)}")
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
-    over = 0
-    if ROUNDING[dtype] is not None:
+    over, what = 0, "one rounding"
+    if dtype == "bfloat16" and name in TC_KERNELS:
+        if magnitude is None:
+            fail(f"{name}: a bf16 check needs the magnitude of its terms")
+        over = int((diff > tc_attention_bound(want, magnitude)).sum())
+        what = "the P-rounding bound"
+    elif ROUNDING[dtype] is not None:
         rel, atol = ROUNDING[dtype]
         over = int((diff > rel * want.float().abs() + atol).sum())
     log(f"[check] {name:30s} {label}: max|kernel-plain|={err:.3e} "
-        f"(tol {TOL[dtype]:.0e}), {over} element(s) past one rounding")
+        f"(tol {TOL[dtype]:.0e}), {over} element(s) past {what}")
     if not err <= TOL[dtype] or over:
         fail(f"{name} disagrees with its plain version ({label}): {err}, "
-             f"{over} element(s) past one bf16 rounding")
+             f"{over} element(s) past {what}")
     return err
 
 
@@ -530,6 +568,15 @@ def phase_build():
     for name, report in reports.items():
         for kernel, usage in ptxas_usage(report):
             log(f"[build] {name}: {kernel}: {usage}")
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    for name in ("flash_attention", "paged_decode_attention"):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, check=True)
+        n = len(re.findall(r"\bHGMMA\.", sass.stdout))
+        log(f"[build] {name}: {n} HGMMA instruction(s) in its SASS")
+        if n == 0:
+            fail(f"{name}: no wgmma (HGMMA) in its SASS")
 
 
 def ptxas_usage(report: str):
@@ -579,6 +626,8 @@ FLASH_CASES = [  # label, B, S, H, KH, hd, window, softcap, causal
     ("granite-3-8b", 8, 512, 32, 8, 128, 0, 0.0, True),
     ("gemma2-9b local", 1, 4608, 16, 8, 256, 4096, 50.0, True),
     ("gemma3-1b local", 2, 1024, 4, 1, 256, 512, 0.0, True),
+    ("hymba-1.5b local", 2, 1500, 25, 5, 64, 1024, 0.0, True),
+    ("granite ragged S", 2, 777, 32, 8, 128, 0, 0.0, True),
 ]
 
 SSD_CASES = [  # label, B, L, nh, hp, N, chunk, decay of A
@@ -617,15 +666,18 @@ def phase_check_flash(torch):
                                      softcap=cap)
             want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window, softcap=cap)
+            mag = ref.flash_attention_ref(q.float(), k.float(),
+                                          v.float().abs(), causal=causal,
+                                          window=window, softcap=cap)
             torch.cuda.synchronize()
             err = compare("flash_attention",
                           f"{label:20s} {dtype:8s} B={B} S={S} H={H} "
                           f"KH={KH} hd={hd} window={window} "
                           f"softcap={cap:2.0f} causal={causal}",
-                          got, want, dtype)
+                          got, want, dtype, mag)
             if label == "trail-llama" and dtype == "bfloat16":
                 worst = err
-            del q, k, v, got, want
+            del q, k, v, got, want, mag
     for dtype, (B, S, H, KH, hd, window, cap) in (
             ("float32", (2, 300, 12, 4, 64, 0, 0.0)),
             ("bfloat16", (2, 512, 16, 8, 256, 128, 50.0))):
@@ -704,6 +756,17 @@ def phase_check_ssd(torch):
     return worst
 
 
+def check_multi(paged, ref, args, cap):
+    """The multi-query kernel, its plain version, and the plain version on
+    |v| in float32 (the magnitude ``tc_attention_bound`` takes)."""
+    got = paged.paged_decode_attention_multi(*args, softcap=cap)
+    want = ref.paged_decode_attention_multi_ref(*args, softcap=cap)
+    q, k, v = (a.float() for a in args[:3])
+    mag = ref.paged_decode_attention_multi_ref(q, k, v.abs(), *args[3:],
+                                               softcap=cap)
+    return got, want, mag
+
+
 def phase_check(torch):
     """Every kernel against its plain version on the same inputs; returns
     the worst error of each at the shapes its row in the JSON line times."""
@@ -729,19 +792,42 @@ def phase_check(torch):
                         args[5][:, 0].contiguous()
                     got = paged.paged_decode_attention(*args, softcap=cap)
                     want = ref.paged_decode_attention_ref(*args, softcap=cap)
+                    mag = None
                 else:
                     name = "paged_decode_attention_multi"
-                    got = paged.paged_decode_attention_multi(*args,
-                                                             softcap=cap)
-                    want = ref.paged_decode_attention_multi_ref(*args,
-                                                                softcap=cap)
+                    got, want, mag = check_multi(paged, ref, args, cap)
                 torch.cuda.synchronize()
                 err = compare(name, f"{arch:13s} {dtype:8s} T={T:3d} "
-                              f"softcap={cap:4.0f}", got, want, dtype)
+                              f"softcap={cap:4.0f}", got, want, dtype, mag)
                 if float(got[[3, 11]].float().abs().max()) != 0.0:
                     fail(f"{name}: inactive rows are not zero")
                 if dtype == "bfloat16" and arch == "granite-3-8b":
                     worst[name] = max(worst[name], err)
+    # the multi-query kernel at pages of 8, and in a prefill batch whose
+    # row tiles are all inactive but two sequences' (the serve's chunks)
+    for arch, T, ps, pmax, inactive in (
+            ("granite-3-8b", 64, 8, 128, (3, 11)),
+            ("gemma2-9b", 32, 8, 96, (3, 11)),
+            ("granite-3-8b", 256, 16, 64,
+             tuple(b for b in range(16) if b not in (0, 9))),
+            ("trail-llama", 256, 16, 64,
+             tuple(b for b in range(16) if b not in (5, 6)))):
+        H, KH, hd = PAGED_SHAPES[arch]
+        for dtype in ("float32", "bfloat16"):
+            seed += 1
+            case = paged_case(torch, B=16, T=T, H=H, KH=KH, hd=hd, ps=ps,
+                              pmax=pmax, dtype=dtype, seed=seed,
+                              inactive=inactive)
+            args = [case[n] for n in PAGED_ARGS]
+            got, want, mag = check_multi(paged, ref, args, 50.0)
+            torch.cuda.synchronize()
+            compare("paged_decode_attention_multi",
+                    f"{arch:13s} {dtype:8s} T={T:3d} ps={ps} "
+                    f"{16 - len(inactive):2d}/16 sequences active",
+                    got, want, dtype, mag)
+            if float(got[list(inactive)].float().abs().max()) != 0.0:
+                fail("paged_decode_attention_multi: inactive rows are not "
+                     "zero")
     for arch, H, KH, hd, M, window, cap in SLOT_CASES:
         for dtype in ("float32", "bfloat16"):
             seed += 1
@@ -802,7 +888,8 @@ def phase_time(torch):
         library_ms = timer(torch, lib, iters=10) if lib else None
         ms2 = timer(torch, kfn)             # kernel, plain, ..., kernel
         b_ms, by = bound
-        lib_s = f"{library_ms:.4f} ms" if lib else "none"
+        lib_s = (f"{library_ms:.4f} ms (kernel/library "
+                 f"{min(ms, ms2) / library_ms:.2f})" if lib else "none")
         log(f"[time] {label:40s} {shape}: kernel {ms:.4f} / {ms2:.4f} ms, "
             f"plain {plain_ms:.4f} ms, library {lib_s}, bound {b_ms:.4f} ms "
             f"({by}), {100 * b_ms / min(ms, ms2):.1f}% of bound")
@@ -1564,7 +1651,7 @@ def _profile(torch, name, label, fn):
     without the profiler, after a warm run), then one run under
     ``torch.profiler``: the device busy time (the sum of the kernels'
     durations, one stream), the kernel launches and the kernels that take
-    the time."""
+    the time (the six largest, and every kernel of this repository)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()                                    # warm
@@ -1593,9 +1680,11 @@ def _profile(torch, name, label, fn):
     log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
         f"{len(kernels)} kernel launches")
-    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"[profile]   {100 * us / busy:5.1f}% {us / 1e3:8.3f} ms "
-            f"{kname[:90]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for i, (kname, us) in enumerate(ranked):    # the top 6 and our kernels
+        if i < 6 or re.search(PORT_KERNELS, kname):
+            log(f"[profile]   {100 * us / busy:5.1f}% {us / 1e3:8.3f} ms "
+                f"{kname[:90]}")
 
 
 def main():

@@ -10,6 +10,13 @@ the launch in ``build.launches``. The library builds at the first launch
 (see ``build.py``). Shapes and semantics are those of
 ``ref.flash_attention_ref``: keys at positions >= S never count, also
 without ``causal``.
+
+The kernel is chosen by dtype: bfloat16 runs on the tensor cores (wgmma
+with bf16 operands and float32 accumulators, P rounded to bf16 before
+P V, K/V brought in by TMA through a ring of shared-memory stages);
+float32 runs the CUDA-core kernel, which holds the plain version to
+1e-5. A bfloat16 input the tensor-core kernel cannot take raises; it
+never falls back.
 """
 
 from __future__ import annotations

@@ -8,6 +8,13 @@ stream, raises if the launch was refused, and counts the launch in
 ``build.launches``. The library builds at the first launch (see
 ``build.py``).
 Shapes and semantics are those of ``ref.py``.
+
+``paged_decode_attention_multi`` chooses its kernel by dtype: bfloat16
+runs on the tensor cores (wgmma, P rounded to bf16 before P V, K/V
+gathered through the block table by cp.async into a ring of
+shared-memory stages, key tiles no row can see skipped before they are
+loaded); float32 runs the CUDA-core kernel, which holds the plain
+version to 1e-5. Neither falls back to the other.
 """
 
 from __future__ import annotations

@@ -21,7 +21,10 @@ floored at 1e-4 as there. The probe's outputs are probabilities: 1e-5
 absolute, as float32 sums over d and hidden are taken in another order.
 """
 
+import importlib.util
+import math
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -105,6 +108,21 @@ def jax_inputs(jx, arrays, dtype):
     """The same inputs for JAX (both casts round float32 to nearest even)."""
     return [jx.jnp.asarray(a).astype(dtype) if a.dtype == np.float32
             else jx.jnp.asarray(a) for a in arrays]
+
+
+_CHIP_SMOKE = None
+
+
+def tc_bound(plain, magnitude):
+    """``chip_smoke.tc_attention_bound``: the per-element bound a bf16
+    result of the tensor-core kernels is held to on the card."""
+    global _CHIP_SMOKE
+    if _CHIP_SMOKE is None:
+        path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        _CHIP_SMOKE = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_CHIP_SMOKE)
+    return _CHIP_SMOKE.tc_attention_bound(plain, magnitude)
 
 
 def max_err(a, b) -> float:
@@ -230,6 +248,11 @@ def test_cuda_kernels_match_plain(T, H, KH, hd, dtype):
         want = tref.paged_decode_attention_multi_ref(*th)
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) <= tol
+    if T > 1 and dtype == "bfloat16":      # tensor cores: P rounded to bf16
+        mag = tref.paged_decode_attention_multi_ref(
+            th[0].float(), th[1].float(), th[2].float().abs(), *th[3:])
+        assert torch.all((got.float() - want.float()).abs()
+                         <= tc_bound(want, mag))
     with pytest.raises(ValueError):        # CPU tensors never reach a kernel
         kern.paged_decode_attention_multi(*[t.cpu() for t in th])
 
@@ -470,6 +493,12 @@ def test_cuda_flash_attention_matches_plain(B, S, H, KH, hd, win, cap,
     torch.cuda.synchronize()
     tol = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
     assert float((got.float() - want.float()).abs().max()) <= tol
+    if dtype == "bfloat16":                # tensor cores: P rounded to bf16
+        mag = tref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                       causal=causal, window=win,
+                                       softcap=cap)
+        assert torch.all((got.float() - want.float()).abs()
+                         <= tc_bound(want, mag))
     if causal:
         dout = torch.randn_like(q)
         ins = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -480,6 +509,177 @@ def test_cuda_flash_attention_matches_plain(B, S, H, KH, hd, win, cap,
             *ins, window=win, softcap=cap), ins, dout)
         for a, b in zip(g_fn, g_plain):
             assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# The bf16 bound of the tensor-core kernels, kept honest on the CPU
+# ---------------------------------------------------------------------------
+
+def emulate_tc(q, k, v, valid, *, softcap, bn):
+    """The bf16 tensor-core kernels' arithmetic in plain torch (the CUDA
+    kernels run only on a card): q (N, R, hd) and k/v (N, M, hd) in bf16,
+    valid (N, R, M). Per key tile of ``bn``: float32 scores scaled by
+    hd^-0.5, soft-capped and masked, in log2 units; the online softmax's
+    running max and sum in float32; P rounded to bf16 before P V, whose
+    sums are float32; the denominator summed from the unrounded P and
+    floored at 1e-30. Returns (N, R, hd) in bf16."""
+    N, R, hd = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((N, R), -math.inf)
+    l = torch.zeros((N, R))
+    o = torch.zeros((N, R, hd))
+    for c0 in range(0, k.shape[1], bn):
+        s = torch.einsum("nrh,nmh->nrm", qf, kf[:, c0:c0 + bn]) * hd ** -0.5
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        s = (s * math.log2(math.e)).masked_fill(~valid[:, :, c0:c0 + bn],
+                                                -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        mu = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(s - mu[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "nrm,nmh->nrh", p.bfloat16().float(), vf[:, c0:c0 + bn])
+        m = m_new
+    return (o / l.clamp_min(1e-30)[..., None]).bfloat16()
+
+
+def tc_key_tile(hd):
+    """The kernels' key tile (``Cfg<HD>::kBN`` of tc_attention.cuh)."""
+    return 64 if hd == 256 else 128
+
+
+def emulate_flash(q, k, v, *, window, softcap, fault=None):
+    """``flash_attention`` through ``emulate_tc``, with its rows flattened
+    as row = position*G + g. ``fault`` makes a wrong kernel: "drop" loses
+    the diagonal key of the last position's rows, "window" shifts the
+    window's far edge in by one key."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    rows = q.reshape(B, S, KH, G, hd).permute(0, 2, 1, 3, 4)
+    rows = rows.reshape(B * KH, S * G, hd)
+    keys = [x.permute(0, 2, 1, 3).reshape(B * KH, S, hd) for x in (k, v)]
+    pos = torch.arange(S).repeat_interleave(G)[:, None]
+    j = torch.arange(S)[None]
+    win = window - 1 if fault == "window" else window
+    valid = j <= pos
+    if win:
+        valid &= j > pos - win
+    if fault == "drop":
+        valid[(pos[:, 0] == S - 1), S - 1] = False
+    out = emulate_tc(rows, *keys, valid.expand(B * KH, -1, -1),
+                     softcap=softcap, bn=tc_key_tile(hd))
+    return out.reshape(B, KH, S, G, hd).permute(0, 2, 1, 3, 4).reshape(
+        B, S, H, hd)
+
+
+def emulate_paged_multi(q, k_pages, v_pages, kpos_pages, block_table, q_pos,
+                        *, window, softcap, fault=None):
+    """``paged_decode_attention_multi`` through ``emulate_tc`` over each
+    sequence's gathered pages. ``fault`` as in ``emulate_flash``: "drop"
+    loses the key at the last query's own position in every sequence."""
+    B, T, H, hd = q.shape
+    KH = k_pages.shape[2]
+    G = H // KH
+    bt = block_table.long()
+    keys = [x[bt].reshape(B, -1, KH, hd).permute(0, 2, 1, 3).reshape(
+        B * KH, -1, hd) for x in (k_pages, v_pages)]
+    kpos = kpos_pages[bt].reshape(B, 1, -1)
+    qp = q_pos.repeat_interleave(G, dim=1)[..., None]           # (B, T*G, 1)
+    win = window - 1 if fault == "window" else window
+    valid = (kpos >= 0) & (kpos <= qp)
+    if win:
+        valid &= kpos > qp - win
+    if fault == "drop":
+        last = (qp == q_pos[:, -1:, None]) & (qp >= 0)
+        valid &= ~(last & (kpos == qp))
+    rows = q.reshape(B, T, KH, G, hd).permute(0, 2, 1, 3, 4).reshape(
+        B * KH, T * G, hd)
+    valid = valid[:, None].expand(-1, KH, -1, -1).reshape(B * KH, T * G, -1)
+    out = emulate_tc(rows, *keys, valid, softcap=softcap, bn=tc_key_tile(hd))
+    return out.reshape(B, KH, T, G, hd).permute(0, 2, 1, 3, 4).reshape(
+        B, T, H, hd)
+
+
+def past_tc_bound(got, want, magnitude):
+    """Elements of ``got`` past ``tc_bound``, and its max abs error."""
+    diff = (got.float() - want.float()).abs()
+    return int((diff > tc_bound(want, magnitude)).sum()), float(diff.max())
+
+
+def flash_bound_case(seed, B, S, H, KH, hd, win, cap, fault=None):
+    q, k, v = torch_inputs(flash_fixture(seed, B, S, H, KH, hd), "bfloat16")
+    got = emulate_flash(q, k, v, window=win, softcap=cap, fault=fault)
+    want = tref.flash_attention_ref(q, k, v, window=win, softcap=cap)
+    mag = tref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                   window=win, softcap=cap)
+    return past_tc_bound(got, want, mag)
+
+
+def multi_bound_case(seed, B, T, H, KH, hd, ps, pmax, win, cap, inactive,
+                     fault=None):
+    th = torch_inputs(paged_fixture(seed, B, T, H, KH, hd, ps, pmax,
+                                    inactive), "bfloat16")
+    got = emulate_paged_multi(*th, window=win, softcap=cap, fault=fault)
+    want = tref.paged_decode_attention_multi_ref(*th, window=win,
+                                                 softcap=cap)
+    mag = tref.paged_decode_attention_multi_ref(
+        th[0].float(), th[1].float(), th[2].float().abs(), *th[3:],
+        window=win, softcap=cap)
+    return past_tc_bound(got, want, mag)
+
+
+FLASH_TC = FLASH + [  # B, S, H, KH, hd, window, softcap
+    (2, 70, 10, 2, 64, 0, 0.0),      # G=5 (hymba's 25/5 heads)
+    (1, 157, 8, 2, 64, 0, 0.0),      # ragged S, past one key tile
+    (1, 200, 4, 2, 256, 64, 50.0),   # window + softcap at hd 256
+]
+
+MULTI_TC = MULTI + [  # B, T, H, KH, hd, ps, pmax, window, softcap, inactive
+    (4, 24, 8, 2, 128, 8, 24, 0, 0.0, (0, 2)),    # ps=8, inactive rows
+    (4, 40, 10, 2, 64, 16, 12, 0, 30.0, (1,)),    # ps=16, G=5, inactive
+]
+
+
+@pytest.mark.parametrize("B,S,H,KH,hd,win,cap", FLASH_TC)
+def test_tc_emulation_meets_the_bf16_bound_flash(B, S, H, KH, hd, win, cap):
+    """The tensor-core arithmetic (P rounded to bf16) against the plain
+    version: every element within ``tc_bound`` and 2e-2."""
+    over, err = flash_bound_case(B * 1000 + S + H, B, S, H, KH, hd, win, cap)
+    assert over == 0 and err <= TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("B,T,H,KH,hd,ps,pmax,win,cap,inactive", MULTI_TC)
+def test_tc_emulation_meets_the_bf16_bound_paged(B, T, H, KH, hd, ps, pmax,
+                                                 win, cap, inactive):
+    over, err = multi_bound_case(B * 999 + T * 31 + ps, B, T, H, KH, hd, ps,
+                                 pmax, win, cap, inactive)
+    assert over == 0 and err <= TOL["bfloat16"]
+
+
+FAULTS = (  # (kernel, sweep case, fault): a window shift where there is one
+    [("flash", i, "drop") for i in range(len(FLASH))]
+    + [("flash", i, "window") for i, c in enumerate(FLASH) if c[5]]
+    + [("multi", i, "drop") for i in range(len(MULTI))]
+    + [("multi", i, "window") for i, c in enumerate(MULTI) if c[7]])
+
+
+@pytest.mark.parametrize("kernel,case,fault", FAULTS)
+def test_bf16_bound_catches_a_wrong_kernel(kernel, case, fault):
+    """At the sweep shapes, an emulation that loses one valid key, or
+    shifts the window by one, puts elements past the bound: it still
+    tells a wrong kernel from P's rounding."""
+    if kernel == "flash":
+        B, S, H, KH, hd, win, cap = FLASH[case]
+        over, _ = flash_bound_case(B * 1000 + S + H, B, S, H, KH, hd, win,
+                                   cap, fault)
+    else:
+        B, T, H, KH, hd, ps, pmax, win, cap, inactive = MULTI[case]
+        over, _ = multi_bound_case(B * 999 + T * 31 + ps, B, T, H, KH, hd,
+                                   ps, pmax, win, cap, inactive, fault)
+    assert over > 0
 
 
 def ssd_fixture(seed, B, L, nh, hp, N, decay=1.0):
