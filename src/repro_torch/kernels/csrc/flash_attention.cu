@@ -45,10 +45,10 @@
 //   Within a warpgroup, a tile's Q K^T is issued with the previous
 //   tile's P V, and its softmax runs while that P V finishes. What it
 //   leaves: the softmax (with the accurate tanhf of the softcap) and
-//   the products still overlap only in part; blocks are not persistent,
-//   so each block's Q load and first K/V tile are exposed, which at
-//   8 x 512 (a few key tiles a block) costs more than the products; the
-//   output is stored from registers 4 bytes at a time.
+//   the products still overlap only in part; at 8 x 512 a block sees a
+//   few key tiles, so the ring never fills and its latencies, not the
+//   products, set the time; the output is stored from registers 4 bytes
+//   at a time.
 //
 // float32 -> flash_attention_kernel, on the CUDA cores, unchanged: tensor
 //   cores cannot hold float32 to the 1e-5 the card's float32 model and

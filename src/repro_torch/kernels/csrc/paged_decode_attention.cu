@@ -57,9 +57,9 @@
 //   window) on the kpos copied beside K/V, applied only to tiles that
 //   some row sees in part (the block table is staged in shared memory and
 //   each live tile's kpos range noted while the tiles are listed). What
-//   it leaves: as in flash_attention.cu; and one producer warpgroup
-//   computes every page address, so at T = 256 the gather, not the
-//   tensor cores, sets the pace.
+//   it leaves: as in flash_attention.cu; and the gather (two producer
+//   threads a key row, 16 bytes a copy) is still a large share of the
+//   time at T = 256.
 //
 // float32 -> paged_multi_kernel, on the CUDA cores, unchanged: K/V chunks
 //   of 32 tokens staged as float32 in shared memory for a tile of 32
@@ -470,13 +470,20 @@ __global__ void __launch_bounds__(tc::Smem<HD, NWG>::kThreads, 1)
   if (warp >= 4 * NWG) {  // producer warpgroup: gather each tile by cp.async
     tc::producer_regs<NWG, kProducerRegs>();
     const int ptid = tid - 128 * NWG;
+    // two threads a key row, on neighbouring 16-byte chunks (so a warp
+    // reads whole 32-byte sectors), each row's address computed once
     auto gather = [&](const __nv_bfloat16* src, uint32_t dst) {
-      for (int idx = ptid; idx < BN * CH; idx += 128) {
-        const int t = idx / CH, c = idx % CH, slot = slot_s[t];
-        const size_t off =
-            slot >= 0 ? ((size_t)slot * KH + kh) * HD + c * 8 : 0;
-        tc::cp_async16(dst + tc::operand_offset<HD>(BN, t, c), src + off,
-                       slot >= 0 ? 16 : 0);
+      for (int t = ptid / 2; t < BN; t += 64) {
+        const int slot = slot_s[t];
+        const __nv_bfloat16* row =
+            src + (slot >= 0 ? ((size_t)slot * KH + kh) * HD : 0);
+        const int bytes = slot >= 0 ? 16 : 0;
+#pragma unroll 4
+        for (int j = 0; j < CH / 2; ++j) {
+          const int c = 2 * j + (ptid & 1);
+          tc::cp_async16(dst + tc::operand_offset<HD>(BN, t, c), row + c * 8,
+                         bytes);
+        }
       }
     };
     for (int it = 0; it < ntl; ++it) {
