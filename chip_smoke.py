@@ -2,6 +2,11 @@
 """Run the PyTorch/CUDA port on one NVIDIA card, end to end, and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-decode CSRC_DIR [CSRC_DIR ...]
+
+The second form only times the single-query decode kernels built from
+each kernel source directory, in turns (``compare_decode``), for instance
+a parent commit's ``src/repro_torch/kernels/csrc`` beside this one's.
 
 Phases, in order (any failure exits non-zero; nothing is passed over):
 
@@ -18,7 +23,13 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    and ``gemma2-9b`` (head_dim 256) with scrambled block tables and null
    pages; ``decode_attention`` at the shapes of ``gemma2-9b`` (a 4608-slot
    cache, and a wrapped 4096-slot ring with window 4096), ``gemma3-1b``
-   (one KV head, window 512) and ``granite-3-8b``, the multi-query kernel
+   (one KV head, window 512), ``granite-3-8b`` and ``hymba-1.5b`` (25/5
+   heads of 64, a 1025-slot ring with window 1024); both single-query
+   kernels also at the edges of their split over a thread-block cluster
+   (B=1, where the split is largest; rows of 1 and ps - 1 tokens, one
+   scan tile and one round of tiles over the split; every valid key in
+   one CTA; 256-page tables; a window edge inside a tile; inactive rows),
+   each case logging the split its launch used; the multi-query kernel
    also with pages of 8 and in a prefill batch whose every row tile is
    inactive but two sequences'; ``probe_update`` at
    ``gemma2-9b`` width, 16 rows and 1, bfloat16 and float32 taps, with a
@@ -44,7 +55,12 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    PyTorch library call computing the same function as a yardstick
    (``scaled_dot_product_attention`` with the same mask; none exists for
    ``probe_update``, whose w1 fits in L2, so it is timed with L2 flushed
-   before every call, nor for ``ssd_scan``);
+   before every call, nor for ``ssd_scan``); the single-query decode
+   kernels and their library call as CUDA graphs of 30 calls (at the
+   serves' shapes a call takes less device time than its wrapper takes
+   on the host), also at the shapes the serves launch most: the gemma2-9b
+   and hymba-1.5b local rings holding 300 positions and granite's
+   28-page tables holding about 300 tokens;
 5. hold the model on the card against the same weights on the CPU in
    float32: ``granite-smoke`` (paged), ``gemma2-smoke`` (contiguous and
    paged), ``mamba2-smoke`` and ``hymba-smoke`` (contiguous), two
@@ -167,14 +183,14 @@ def fail(msg: str):
 # ---------------------------------------------------------------------------
 
 def paged_case(torch, *, B, T, H, KH, hd, ps, pmax, dtype, seed,
-               inactive=(), all_active=False):
+               inactive=(), all_active=False, lengths=None):
     """Random page pool with scrambled block tables (on the card).
 
-    Each row holds a random length; its pages are a random permutation of
-    the pool, unused table entries point at null page 0 (kpos -1). Query
-    positions are the T trailing positions of each row (earlier than 0 ->
-    -1); rows listed in ``inactive`` get q_pos = -1 throughout.
-    ``all_active`` gives every row the full table instead.
+    Each row holds a random length (or ``lengths[b]``); its pages are a
+    random permutation of the pool, unused table entries point at null
+    page 0 (kpos -1). Query positions are the T trailing positions of each
+    row (earlier than 0 -> -1); rows listed in ``inactive`` get q_pos = -1
+    throughout. ``all_active`` gives every row the full table instead.
     """
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -187,8 +203,9 @@ def paged_case(torch, *, B, T, H, KH, hd, ps, pmax, dtype, seed,
     v = torch.randn((P, ps, KH, hd), generator=g, device=dev).to(tdt)
     if all_active:
         lengths = np.full(B, pmax * ps)
-    else:
+    elif lengths is None:
         lengths = rng.integers(1, pmax * ps, size=B)
+    lengths = np.asarray(lengths)
     bt = np.zeros((B, pmax), np.int32)
     kpos = np.full((P, ps), -1, np.int32)
     perm = rng.permutation(np.arange(1, P))
@@ -377,6 +394,30 @@ def time_ms(torch, fn, iters=30, warmup=3):
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(torch, fn, iters=30, warmup=3):
+    """Device time of one call: ``iters`` calls captured in one CUDA graph
+    and replayed between two events, so no host work sits between the
+    calls (a decode call at the serves' shapes takes less device time
+    than its wrapper takes on the host)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -612,6 +653,7 @@ SLOT_CASES = [  # arch, H, KH, hd, M, window, softcap
     ("gemma2-9b local", 16, 8, 256, 4096, 4096, 50.0),
     ("gemma3-1b local", 4, 1, 256, 512, 512, 0.0),
     ("granite-3-8b", 32, 8, 128, 448, 0, 0.0),
+    ("hymba-1.5b local", 25, 5, 64, 1025, 1024, 0.0),
 ]
 
 
@@ -873,6 +915,269 @@ def phase_check(torch):
     return worst
 
 
+def decode_split(kernel, dtype, **shape):
+    """The CTAs per (KV head, sequence) row that ``kernel``
+    (``decode_attention`` or ``paged_decode_attention``) launches for these
+    sizes: its C library's ``<kernel>_split`` entry, which sizes the
+    cluster exactly as the launch does. Fails on a CUDA error."""
+    import ctypes
+    from repro_torch.kernels import build
+    names = (("B", "H", "KH", "hd", "M") if kernel == "decode_attention"
+             else ("B", "H", "KH", "hd", "ps", "pmax"))
+    entry = f"{kernel}_split"
+    lib = build.bind(kernel, {entry: [ctypes.c_int] * (1 + len(names))})
+    n = getattr(lib, entry)(1 if dtype == "bfloat16" else 0,
+                            *(shape[k] for k in names))
+    if n < 1:
+        fail(f"{entry}: CUDA error {-n}")
+    return n
+
+
+# Edges of the split over a cluster: (label, arch, B, ps, pmax, lengths,
+# window, softcap, inactive rows). "edges" = rows of 1 and ps - 1 tokens,
+# one scan tile (32) and one more token, one round of tiles over the split
+# (32 * nsplit) and either side of it, then full rows (the last inactive). A row of at most 32
+# tokens, or a window of 16, puts every valid key in one CTA's tiles.
+PAGED_EDGES = [
+    ("B=1 full table", "granite-3-8b", 1, 16, 64, [1024], 0, 0.0, ()),
+    ("B=1 hd 256", "gemma2-9b", 1, 16, 64, [1000], 0, 50.0, ()),
+    ("edges", "granite-3-8b", 9, 16, 64, "edges", 0, 0.0, (8,)),
+    ("edges ps=8", "trail-llama", 9, 8, 96, "edges", 0, 0.0, (8,)),
+    ("pmax=256", "granite-3-8b", 4, 16, 256, [4096, 4095, 3001, 17], 0, 0.0,
+     ()),
+    ("window 200, edge inside a tile", "gemma2-9b", 4, 16, 64,
+     [1000, 700, 333, 90], 200, 50.0, ()),
+    ("window 16, keys in one CTA", "granite-3-8b", 4, 16, 64,
+     [1000, 700, 40, 3], 16, 0.0, (3,)),
+]
+
+# The same for the slot cache: (label, H, KH, hd, M, window, softcap, B,
+# lengths, inactive rows).
+SLOT_EDGES = [
+    ("B=1 gemma2-9b ring, full", 16, 8, 256, 4097, 4096, 50.0, 1, [6000],
+     ()),
+    ("B=1 gemma2-9b global", 16, 8, 256, 4609, 0, 50.0, 1, [4000], ()),
+    ("B=1 gemma3-1b ring", 4, 1, 256, 512, 512, 0.0, 1, [700], ()),
+    ("gemma2-9b global edges", 16, 8, 256, 4609, 0, 50.0, 9, "edges", (8,)),
+    ("hymba-1.5b ring-300", 25, 5, 64, 1025, 1024, 0.0, 16,
+     [300] * 13 + [20, 1500, 2000], (3,)),
+    ("ring, keys in one CTA", 25, 5, 64, 1025, 1024, 0.0, 4, [20, 1, 32, 33],
+     ()),
+    ("ring window 1000, edge inside a tile", 16, 8, 256, 1025, 1000, 50.0, 4,
+     [3000, 1030, 1011, 500], ()),
+]
+
+
+def edge_lengths(nsplit, ps, B, full):
+    """Row lengths at the edges of a split of ``nsplit`` CTAs, then full
+    rows up to B."""
+    edges = [1, ps - 1, 32, 33, 32 * nsplit - 1, 32 * nsplit,
+             32 * nsplit + 1]
+    return [min(n, full) for n in edges + [full] * B][:B]
+
+
+def phase_check_split(torch):
+    """``decode_attention`` and ``paged_decode_attention`` at the edges of
+    their split over a thread-block cluster, float32 (1e-5) and bfloat16
+    (one rounding), inactive rows exactly 0. B=1 takes the largest split;
+    each case logs the split its launch used."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import paged_decode_attention as paged
+    from repro_torch.kernels import ref
+    seed = 700
+    largest = 0
+    for label, arch, B, ps, pmax, lengths, window, cap, inactive in \
+            PAGED_EDGES:
+        H, KH, hd = PAGED_SHAPES[arch]
+        for dtype in ("float32", "bfloat16"):
+            seed += 1
+            ns = decode_split("paged_decode_attention", dtype, B=B, H=H,
+                              KH=KH, hd=hd, ps=ps, pmax=pmax)
+            largest = max(largest, ns)
+            lens = (edge_lengths(ns, ps, B, pmax * ps) if lengths == "edges"
+                    else lengths)
+            case = paged_case(torch, B=B, T=1, H=H, KH=KH, hd=hd, ps=ps,
+                              pmax=pmax, dtype=dtype, seed=seed,
+                              inactive=inactive, lengths=lens)
+            args = [case[n] for n in PAGED_ARGS]
+            args[0], args[5] = args[0][:, 0].contiguous(), \
+                args[5][:, 0].contiguous()
+            got = paged.paged_decode_attention(*args, window=window,
+                                               softcap=cap)
+            want = ref.paged_decode_attention_ref(*args, window=window,
+                                                  softcap=cap)
+            torch.cuda.synchronize()
+            compare("paged_decode_attention",
+                    f"{label:30s} {arch} {dtype:8s} B={B} split={ns} "
+                    f"lengths={list(lens)[:8]}", got, want, dtype)
+            if inactive and float(got[list(inactive)].float().abs().max()):
+                fail("paged_decode_attention: inactive rows are not zero")
+    for label, H, KH, hd, M, window, cap, B, lengths, inactive in SLOT_EDGES:
+        for dtype in ("float32", "bfloat16"):
+            seed += 1
+            ns = decode_split("decode_attention", dtype, B=B, H=H, KH=KH,
+                              hd=hd, M=M)
+            largest = max(largest, ns)
+            lens = (edge_lengths(ns, 16, B, M) if lengths == "edges"
+                    else lengths)
+            case = slot_case(torch, B=B, H=H, KH=KH, hd=hd, M=M,
+                             window=window, dtype=dtype, seed=seed,
+                             inactive=inactive, lengths=lens)
+            args = [case[n] for n in SLOT_ARGS]
+            got = dec.decode_attention(*args, window=window, softcap=cap)
+            want = ref.decode_attention_ref(*args, window=window,
+                                            softcap=cap)
+            torch.cuda.synchronize()
+            compare("decode_attention",
+                    f"{label:30s} {dtype:8s} B={B} split={ns} "
+                    f"lengths={list(lens)[:8]}", got, want, dtype)
+            if inactive and float(got[list(inactive)].float().abs().max()):
+                fail("decode_attention: inactive rows are not zero")
+    log(f"[check] the largest split launched: {largest} CTAs per cluster")
+    if largest < 2:
+        fail("no case split a row over a cluster")
+
+
+# The single-query decode rows of phase 4 (bf16, B=16): (label, kind,
+# spec). Paged specs are (arch, pmax, serve): full 16-token pages, or the
+# granite serve's tables of 28 pages holding about 300 tokens a row. Slot
+# specs are (H, KH, hd, M, window, softcap, row length): a gemma2-9b local
+# layer's full, wrapped ring; a global layer's 4609-slot row (4608 + the
+# sink) holding 300-token contexts, as in the serve phase; and the local
+# rings of the gemma2-9b and hymba-1.5b serves, 300 positions in each.
+DECODE_TIMED = [
+    ("paged_decode_attention[granite-3-8b,T=1]", "paged",
+     ("granite-3-8b", 64, False)),
+    ("paged_decode_attention[gemma2-9b,T=1]", "paged",
+     ("gemma2-9b", 64, False)),
+    ("paged_decode_attention[granite-3-8b,serve]", "paged",
+     ("granite-3-8b", 28, True)),
+    ("decode_attention[gemma2-9b,ring]", "slot",
+     (16, 8, 256, 4097, 4096, 50.0, 6000)),
+    ("decode_attention[gemma2-9b,global]", "slot",
+     (16, 8, 256, 4609, 0, 50.0, 300)),
+    ("decode_attention[gemma2-9b,ring-300]", "slot",
+     (16, 8, 256, 4097, 4096, 50.0, 300)),
+    ("decode_attention[hymba-1.5b,ring-300]", "slot",
+     (25, 5, 64, 1025, 1024, 0.0, 300)),
+]
+
+
+def decode_timed_case(torch, kind, spec, with_split=True):
+    """Inputs of a DECODE_TIMED row: (wrapper arguments, window, softcap,
+    shape text, library call, bound); the text names the split the launch
+    uses (``with_split``)."""
+    import numpy as np
+    if kind == "paged":
+        arch, pmax, serve = spec
+        H, KH, hd = PAGED_SHAPES[arch]
+        lengths = (np.random.default_rng(5).integers(280, 321, size=16)
+                   if serve else None)
+        case = paged_case(torch, B=16, T=1, H=H, KH=KH, hd=hd, ps=16,
+                          pmax=pmax, dtype="bfloat16", seed=101,
+                          all_active=not serve, lengths=lengths)
+        args = [case[n] for n in PAGED_ARGS]
+        args[0], args[5] = args[0][:, 0].contiguous(), \
+            args[5][:, 0].contiguous()
+        shape = f"B=16 H={H} KH={KH} hd={hd} ps=16 pmax={pmax} bf16"
+        if serve:
+            shape += f" lengths {lengths.min()}-{lengths.max()}"
+        if with_split:
+            shape += " split=%d" % decode_split(
+                "paged_decode_attention", "bfloat16", B=16, H=H, KH=KH,
+                hd=hd, ps=16, pmax=pmax)
+        return (args, 0, 0.0, shape, paged_library_call(torch, case),
+                paged_bound(case, "bfloat16"))
+    H, KH, hd, M, window, cap, length = spec
+    case = slot_case(torch, B=16, H=H, KH=KH, hd=hd, M=M, window=window,
+                     dtype="bfloat16", seed=7, lengths=[length] * 16)
+    shape = (f"B=16 H={H} KH={KH} hd={hd} M={M} window={window} "
+             f"softcap={cap:2.0f} bf16, {length} positions a row")
+    if with_split:
+        shape += " split=%d" % decode_split(
+            "decode_attention", "bfloat16", B=16, H=H, KH=KH, hd=hd, M=M)
+    return ([case[n] for n in SLOT_ARGS], window, cap, shape,
+            slot_library_call(case, window),
+            slot_bound(case, window, "bfloat16"))
+
+
+def compare_decode(torch, dirs):
+    """``--compare-decode DIR ...``: build ``decode_attention.cu`` and
+    ``paged_decode_attention.cu`` from each kernel source directory DIR
+    (``src/repro_torch/kernels/csrc`` of this checkout or of another one,
+    say the parent commit's from ``git archive``; their C entries are the
+    same) and time their single-query entries at the DECODE_TIMED shapes
+    in turns (first to last, then last to first), each as a CUDA graph of
+    30 calls, beside the library call. Each build's result is first held
+    against the plain version."""
+    import ctypes
+    from repro_torch.kernels import build, ref
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sig = {"decode_attention": [ptr] * 6 + [i32] * 6 + [f32, i32, f32, ptr],
+           "paged_decode_attention":
+               [ptr] * 7 + [i32] * 7 + [f32, i32, f32, ptr]}
+    outs = [build.BUILD_DIR.parent / "compare" / str(i)
+            for i in range(len(dirs))]
+    jobs = []
+    for d, out in zip(dirs, outs):
+        out.mkdir(parents=True, exist_ok=True)
+        for name in sig:
+            cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o",
+                   str(out / f"{name}.so"), str(Path(d) / f"{name}.cu")]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    for cmd, proc in jobs:
+        report, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"{' '.join(cmd)} failed:\n{report}")
+    entries = []
+    for out in outs:
+        entry = {}
+        for name, argtypes in sig.items():
+            fn = getattr(ctypes.CDLL(str(out / f"{name}.so")),
+                         f"{name}_launch")
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            entry[name] = fn
+        entries.append(entry)
+    for label, kind, spec in DECODE_TIMED:
+        args, window, cap, shape, lib, (b_ms, by) = decode_timed_case(
+            torch, kind, spec, with_split=False)
+        q = args[0]
+        B, H, hd = q.shape
+        out = torch.empty_like(q)
+        name = "paged_decode_attention" if kind == "paged" else \
+            "decode_attention"
+        if kind == "paged":
+            ps, KH = args[1].shape[1], args[1].shape[2]
+            sizes = (B, H, KH, hd, ps, args[4].shape[1])
+            want = ref.paged_decode_attention_ref(*args)
+        else:
+            sizes = (B, H, args[1].shape[2], hd, args[1].shape[1])
+            want = ref.decode_attention_ref(*args, window=window,
+                                            softcap=cap)
+        fns = []
+        for d, entry in zip(dirs, entries):
+            def launch(fn=entry[name]):
+                err = fn(*(a.data_ptr() for a in args), out.data_ptr(), 1,
+                         *sizes, hd ** -0.5, window, cap,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    fail(f"{label} ({d}): CUDA error {err}")
+            launch()
+            torch.cuda.synchronize()
+            compare(name, f"{label} ({d})", out, want, "bfloat16")
+            fns.append(launch)
+        times = [[] for _ in fns]
+        for i in [*range(len(fns)), *reversed(range(len(fns)))]:
+            times[i].append(time_graph_ms(torch, fns[i]))
+        lib_ms = time_graph_ms(torch, lib, iters=10)
+        log(f"[compare] {label} {shape}: " + "; ".join(
+            f"{d}: {min(t):.4f} ms ({100 * b_ms / min(t):.1f}% of bound)"
+            for d, t in zip(dirs, times))
+            + f"; library {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({by})")
+
+
 def phase_time(torch):
     """Time each kernel at its path's shapes (bfloat16) beside its plain
     version, its bound and its library yardstick."""
@@ -882,8 +1187,8 @@ def phase_time(torch):
     rows = {}
 
     def row(label, shape, kfn, pfn, lib, bound, plain_iters=20,
-            timer=time_ms):
-        plain_ms = timer(torch, pfn, iters=plain_iters)
+            timer=time_ms, plain_timer=None):
+        plain_ms = (plain_timer or timer)(torch, pfn, iters=plain_iters)
         ms = timer(torch, kfn)
         library_ms = timer(torch, lib, iters=10) if lib else None
         ms2 = timer(torch, kfn)             # kernel, plain, ..., kernel
@@ -896,44 +1201,33 @@ def phase_time(torch):
         rows[label] = dict(ms=min(ms, ms2), plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=b_ms, bound_by=by)
 
-    for arch, T in (("granite-3-8b", 1), ("granite-3-8b", 8),
-                    ("granite-3-8b", 256), ("gemma2-9b", 1),
+    for label, kind, spec in DECODE_TIMED:
+        args, window, cap, shape, lib, bound = decode_timed_case(torch, kind,
+                                                                 spec)
+        if kind == "paged":
+            kfn = lambda: paged.paged_decode_attention(*args)  # noqa: E731
+            pfn = lambda: ref.paged_decode_attention_ref(*args)  # noqa: E731
+        else:
+            kfn = lambda: dec.decode_attention(  # noqa: E731
+                *args, window=window, softcap=cap)
+            pfn = lambda: ref.decode_attention_ref(  # noqa: E731
+                *args, window=window, softcap=cap)
+        row(label, shape, kfn, pfn, lib, bound, timer=time_graph_ms,
+            plain_timer=time_ms)
+
+    for arch, T in (("granite-3-8b", 8), ("granite-3-8b", 256),
                     ("gemma2-9b", 8)):
         H, KH, hd = PAGED_SHAPES[arch]
         case = paged_case(torch, B=16, T=T, H=H, KH=KH, hd=hd, ps=16,
                           pmax=64, dtype="bfloat16", seed=100 + T,
                           all_active=True)
         args = [case[n] for n in PAGED_ARGS]
-        name = "paged_decode_attention" + ("" if T == 1 else "_multi")
-        if T == 1:
-            args[0], args[5] = args[0][:, 0].contiguous(), \
-                args[5][:, 0].contiguous()
-            kfn = lambda: paged.paged_decode_attention(*args)  # noqa: E731
-            pfn = lambda: ref.paged_decode_attention_ref(*args)  # noqa: E731
-        else:
-            kfn = lambda: paged.paged_decode_attention_multi(*args)  # noqa: E731
-            pfn = lambda: ref.paged_decode_attention_multi_ref(*args)  # noqa: E731
-        row(f"{name}[{arch},T={T}]",
-            f"B=16 H={H} KH={KH} hd={hd} ps=16 pmax=64 bf16", kfn, pfn,
+        row(f"paged_decode_attention_multi[{arch},T={T}]",
+            f"B=16 H={H} KH={KH} hd={hd} ps=16 pmax=64 bf16",
+            lambda: paged.paged_decode_attention_multi(*args),
+            lambda: ref.paged_decode_attention_multi_ref(*args),
             paged_library_call(torch, case), paged_bound(case, "bfloat16"),
             plain_iters=5 if T == 256 else 20)
-
-    # decode_attention: a gemma2-9b local layer's full, wrapped ring (every
-    # slot valid), and a global layer's 4609-slot row (4608 + the sink)
-    # holding 300-token contexts, as in the serve phase
-    for label, M, window, lengths in (
-            ("decode_attention[gemma2-9b,ring]", 4097, 4096, [6000] * 16),
-            ("decode_attention[gemma2-9b,global]", 4609, 0, [300] * 16)):
-        case = slot_case(torch, B=16, H=16, KH=8, hd=256, M=M, window=window,
-                         dtype="bfloat16", seed=7, lengths=lengths)
-        args = [case[n] for n in SLOT_ARGS]
-        row(label, f"B=16 H=16 KH=8 hd=256 M={M} window={window} "
-            f"softcap=50 bf16",
-            lambda: dec.decode_attention(*args, window=window, softcap=50.0),
-            lambda: ref.decode_attention_ref(*args, window=window,
-                                             softcap=50.0),
-            slot_library_call(case, window),
-            slot_bound(case, window, "bfloat16"))
 
     from repro_torch.kernels import flash_attention as fa
     for arch, (B, S, H, KH, hd, window, cap) in FLASH_TIMED.items():
@@ -1698,10 +1992,14 @@ def main():
         import repro_torch  # noqa: F401
     except ImportError as e:
         fail(f"the repro_torch package is not beside this script: {e}")
+    if sys.argv[1:2] == ["--compare-decode"]:
+        compare_decode(torch, sys.argv[2:])
+        return
     phase_build()
     worst = phase_check(torch)
     worst["flash_attention"] = phase_check_flash(torch)
     worst["ssd_scan"] = phase_check_ssd(torch)
+    phase_check_split(torch)
     rows = phase_time(torch)
     phase_reference(torch)
     phase_reference_train(torch)

@@ -21,15 +21,17 @@
 // cache otherwise must not use this kernel.
 //
 // What bounds it: memory. Decode reads each valid K/V row once per
-// (sequence, KV head) and does 4 flops per element per query head, far
-// below the card's ~295 flops/byte ridge. One block per (KV head,
-// sequence) serves the whole query group from one stream of the rows;
-// loads are 16 bytes per thread on neighbouring addresses, a chunk's K
-// and V loads are all issued before use, and masked rows are never loaded
-// (only their 4-byte kpos is read). Splitting one sequence over several
-// blocks (flash-decoding) is left for later work.
+// (sequence, KV head) and does 4 operations per element per query head,
+// far below the card's ~295 operations-a-byte ridge. The design is
+// flash_decode.cuh's: each (KV head, sequence) row is split over a
+// thread-block cluster, each CTA scans its share of the row's kpos and
+// lists the valid slots before loading any K/V row (a ring holding 300
+// positions in 4097 slots loads 300 rows, wherever they lie), streams the
+// listed rows through a per-warp cp.async ring with no block-wide barrier
+// per tile, and the CTAs merge their partial softmax states through
+// distributed shared memory: one launch, no workspace.
 //
-// Plain C interface for ctypes; the entry returns cudaGetLastError().
+// Plain C interface for ctypes; each entry returns a CUDA error code.
 
 #include "flash_decode.cuh"
 
@@ -40,33 +42,26 @@ using namespace flash_decode;
 // Token rows of a (B, M) slot cache: token n of sequence b is row b*M + n.
 struct SlotRows {
   int M, window;
-  __device__ int ntok(int, int qp) const {
+  __host__ __device__ int staged() const { return 0; }
+  __device__ void stage(int, int*) const {}
+  __device__ int ntok(int qp) const {
     return window != 0 ? M : min(qp + 1, M);
   }
-  __device__ bool live(int, int, int) const { return true; }
-  __device__ long long slot(int b, int n) const {
-    return (long long)b * M + n;
-  }
+  __device__ int slot(int b, int n, const int*) const { return b * M + n; }
 };
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. head_dim in {32, 64, 128, 256}; H/KH
-// <= 8. Shapes as above; all tensors contiguous.
-extern "C" int decode_attention_launch(const void* q, const void* k,
-                                       const void* v, const void* kpos,
-                                       const void* q_pos, void* out,
-                                       int dtype, int B, int H, int KH,
-                                       int hd, int M, float scale, int window,
-                                       float softcap, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Launch (split == nullptr) or report the CTAs per row it would use.
+int dispatch(const void* q, const void* k, const void* v, const void* kpos,
+             const void* q_pos, void* out, int dtype, int B, int H, int KH,
+             int hd, int M, float scale, int window, float softcap,
+             cudaStream_t s, int* split) {
   const int* kp = static_cast<const int*>(kpos);
   const int* qp = static_cast<const int*>(q_pos);
   const SlotRows rows{M, window};
   if (H % KH != 0 || H / KH > 8) return (int)cudaErrorInvalidValue;
-#define DEC(T, HD)                                                        \
-  return (int)launch_decode<T, HD>(q, k, v, kp, rows, qp, out, B, H, KH, \
-                                   scale, window, softcap, s)
+#define DEC(T, HD)                                                          \
+  return (int)launch_decode<T, HD>(q, k, v, kp, rows, qp, out, B, H, KH, M, \
+                                   scale, window, softcap, s, split)
   if (dtype == 0) {
     if (hd == 32) DEC(float, 32);
     if (hd == 64) DEC(float, 64);
@@ -80,4 +75,30 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   }
 #undef DEC
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. head_dim in {32, 64, 128, 256}; H/KH
+// <= 8. Shapes as above; all tensors contiguous.
+extern "C" int decode_attention_launch(const void* q, const void* k,
+                                       const void* v, const void* kpos,
+                                       const void* q_pos, void* out,
+                                       int dtype, int B, int H, int KH,
+                                       int hd, int M, float scale, int window,
+                                       float softcap, void* stream) {
+  return dispatch(q, k, v, kpos, q_pos, out, dtype, B, H, KH, hd, M, scale,
+                  window, softcap, static_cast<cudaStream_t>(stream),
+                  nullptr);
+}
+
+// The CTAs per (KV head, sequence) that decode_attention_launch would use
+// for these sizes (>= 1), or a negative CUDA error code.
+extern "C" int decode_attention_split(int dtype, int B, int H, int KH,
+                                      int hd, int M) {
+  int split = 0;
+  const int err = dispatch(nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, dtype, B, H, KH, hd, M, 1.f, 0, 0.f,
+                           nullptr, &split);
+  return err != 0 ? -err : split;
 }

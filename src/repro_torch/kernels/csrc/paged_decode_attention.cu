@@ -19,16 +19,17 @@
 // reference's NEG_INF = -2^30 semantics).
 //
 // paged_decode_attention (one query per sequence). What bounds it:
-// memory. Decode reads every referenced page's K, V and kpos once per
-// (sequence, KV head) and does 4 flops per K/V element per query row, far
-// below the card's ~295 flops/byte ridge. The design keeps that traffic
-// to one pass: one block per (sequence, KV head) serves all G query heads
-// of the group from one stream of the pages, loads are 16 bytes per
-// thread with neighbouring threads on neighbouring addresses, the K and V
-// rows of a whole chunk are issued before any of them is used (so many
-// loads are in flight per block), and null pages are skipped without a
-// load. Tensor cores and splitting the pages of one sequence over several
-// blocks are left for later work.
+// memory. Decode reads every valid K/V row of the pages once per
+// (sequence, KV head) and does 4 operations per K/V element per query
+// head, far below the card's ~295 operations-a-byte ridge. The design is
+// flash_decode.cuh's: each (KV head, sequence) row is split over a
+// thread-block cluster; each CTA stages the block-table row in shared
+// memory, scans the kpos of its share of the tokens (a null page is
+// skipped without reading its kpos) and lists the valid slots before
+// loading any K/V row, streams the listed rows through a per-warp cp.async
+// ring with no block-wide barrier per tile, and the CTAs merge their
+// partial softmax states through distributed shared memory: one launch,
+// no workspace.
 //
 // paged_decode_attention_multi (T queries per sequence, the prefill
 // chunk). The kernel is chosen by dtype, at the C entry:
@@ -66,7 +67,7 @@
 //   query rows, plain FMA, chunks of null pages skipped. Tensor cores
 //   cannot hold float32 to the card's 1e-5 float32 checks.
 //
-// Plain C interface for ctypes; each entry returns cudaGetLastError().
+// Plain C interface for ctypes; each entry returns a CUDA error code.
 
 #include "flash_decode.cuh"
 #include "tc_attention.cuh"
@@ -88,18 +89,20 @@ __device__ __forceinline__ bool chunk_has_pages(const int* bt, int b, int pmax,
 }
 
 // Token rows of the single-query kernel (flash_decode.cuh): token n of
-// sequence b is slot n % ps of page block_table[b][n / ps]; the null page
-// is never loaded and a chunk of null pages is skipped.
+// sequence b is slot n % ps of page block_table[b][n / ps], the block-table
+// row being staged in shared memory; the null page is never read.
 struct PagedRows {
   const int* bt;
   int pmax, ps;
-  __device__ int ntok(int, int) const { return pmax * ps; }
-  __device__ bool live(int b, int c0, int c1) const {
-    return chunk_has_pages(bt, b, pmax, ps, c0, c1);
+  __host__ __device__ int staged() const { return pmax; }
+  __device__ void stage(int b, int* s) const {
+    for (int i = threadIdx.x; i < pmax; i += blockDim.x)
+      s[i] = bt[(size_t)b * pmax + i];
   }
-  __device__ long long slot(int b, int n) const {
-    const int pid = bt[b * pmax + n / ps];
-    return pid != 0 ? (long long)pid * ps + n % ps : -1;
+  __device__ int ntok(int) const { return pmax * ps; }
+  __device__ int slot(int, int n, const int* s) const {
+    const int pid = s[n / ps];
+    return pid != 0 ? pid * ps + n % ps : -1;
   }
 };
 
@@ -568,24 +571,21 @@ cudaError_t launch_multi_bf16(const void* q, const void* k, const void* v,
                                 ps, pmax, scale, window, softcap, stream);
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (the multi-query entry: tensor cores).
-// head_dim in {32, 64, 128, 256}; H/KH <= 8 for the single-query kernel.
-// Shapes as in ref.py; all tensors contiguous.
-extern "C" int paged_decode_attention_launch(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* kpos_pages, const void* block_table, const void* q_pos,
-    void* out, int dtype, int B, int H, int KH, int hd, int ps, int pmax,
-    float scale, int window, float softcap, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The single-query kernel: launch (split == nullptr) or report the CTAs
+// per row it would use.
+int single(const void* q, const void* k_pages, const void* v_pages,
+           const void* kpos_pages, const void* block_table, const void* q_pos,
+           void* out, int dtype, int B, int H, int KH, int hd, int ps,
+           int pmax, float scale, int window, float softcap, cudaStream_t s,
+           int* split) {
   const int* kp = static_cast<const int*>(kpos_pages);
   const PagedRows rows{static_cast<const int*>(block_table), pmax, ps};
   const int* qp = static_cast<const int*>(q_pos);
   if (H % KH != 0 || H / KH > 8) return (int)cudaErrorInvalidValue;
-#define DEC(T, HD)                                                         \
+#define DEC(T, HD)                                                          \
   return (int)launch_decode<T, HD>(q, k_pages, v_pages, kp, rows, qp, out, \
-                                   B, H, KH, scale, window, softcap, s)
+                                   B, H, KH, pmax * ps, scale, window,      \
+                                   softcap, s, split)
   if (dtype == 0) {
     if (hd == 32) DEC(float, 32);
     if (hd == 64) DEC(float, 64);
@@ -599,6 +599,32 @@ extern "C" int paged_decode_attention_launch(
   }
 #undef DEC
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (the multi-query entry: tensor cores).
+// head_dim in {32, 64, 128, 256}; H/KH <= 8 for the single-query kernel.
+// Shapes as in ref.py; all tensors contiguous.
+extern "C" int paged_decode_attention_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* kpos_pages, const void* block_table, const void* q_pos,
+    void* out, int dtype, int B, int H, int KH, int hd, int ps, int pmax,
+    float scale, int window, float softcap, void* stream) {
+  return single(q, k_pages, v_pages, kpos_pages, block_table, q_pos, out,
+                dtype, B, H, KH, hd, ps, pmax, scale, window, softcap,
+                static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The CTAs per (KV head, sequence) that paged_decode_attention_launch
+// would use for these sizes (>= 1), or a negative CUDA error code.
+extern "C" int paged_decode_attention_split(int dtype, int B, int H, int KH,
+                                            int hd, int ps, int pmax) {
+  int split = 0;
+  const int err = single(nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, dtype, B, H, KH, hd, ps, pmax, 1.f,
+                         0, 0.f, nullptr, &split);
+  return err != 0 ? -err : split;
 }
 
 extern "C" int paged_decode_attention_multi_launch(

@@ -68,19 +68,23 @@ def jx():
                           static_argnames=static))
 
 
-def paged_fixture(seed, B, T, H, KH, hd, ps, pmax, inactive=()):
+def paged_fixture(seed, B, T, H, KH, hd, ps, pmax, inactive=(),
+                  lengths=None):
     """Random page pool with scrambled block tables (numpy, float32).
 
     Pages go to sequences in a random order; unallocated table entries
-    point at null page 0 (kpos -1). Query positions are the T trailing
-    positions of each row (before 0 -> -1); rows in ``inactive`` are -1.
+    point at null page 0 (kpos -1). Row lengths are random unless given.
+    Query positions are the T trailing positions of each row (before 0 ->
+    -1); rows in ``inactive`` are -1.
     """
     rng = np.random.default_rng(seed)
     P = 1 + B * pmax
     q = rng.standard_normal((B, T, H, hd)).astype(np.float32)
     k = rng.standard_normal((P, ps, KH, hd)).astype(np.float32)
     v = rng.standard_normal((P, ps, KH, hd)).astype(np.float32)
-    lengths = rng.integers(1, pmax * ps, size=(B,))
+    if lengths is None:
+        lengths = rng.integers(1, pmax * ps, size=(B,))
+    lengths = np.asarray(lengths)
     bt = np.zeros((B, pmax), np.int32)
     kpos = np.full((P, ps), -1, np.int32)
     perm = rng.permutation(np.arange(1, P))
@@ -257,18 +261,21 @@ def test_cuda_kernels_match_plain(T, H, KH, hd, dtype):
         kern.paged_decode_attention_multi(*[t.cpu() for t in th])
 
 
-def slot_fixture(seed, B, H, KH, hd, M, window, inactive=()):
+def slot_fixture(seed, B, H, KH, hd, M, window, inactive=(), lengths=None):
     """Random slot cache as ``models.attention.cache_write`` lays it out
     (numpy, float32). Without a window position p sits in slot p; with
     one the M slots are a ring (position p in slot p % M) whose rows may
     have wrapped, so positions are out of slot order; the window may be
-    shorter than the ring, masking its oldest entries. q_pos is each
-    row's last position; rows in ``inactive`` are -1."""
+    shorter than the ring, masking its oldest entries. Row lengths are
+    random unless given. q_pos is each row's last position; rows in
+    ``inactive`` are -1."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, H, hd)).astype(np.float32)
     k = rng.standard_normal((B, M, KH, hd)).astype(np.float32)
     v = rng.standard_normal((B, M, KH, hd)).astype(np.float32)
-    lengths = rng.integers(1, 3 * M if window else M, size=(B,))
+    if lengths is None:
+        lengths = rng.integers(1, 3 * M if window else M, size=(B,))
+    lengths = np.asarray(lengths)
     kpos = np.full((B, M), -1, np.int32)
     for b, n in enumerate(lengths):
         for p in range(max(0, int(n) - M), int(n)):
@@ -680,6 +687,253 @@ def test_bf16_bound_catches_a_wrong_kernel(kernel, case, fault):
         over, _ = multi_bound_case(B * 999 + T * 31 + ps, B, T, H, KH, hd,
                                    ps, pmax, win, cap, inactive, fault)
     assert over > 0
+
+
+# ---------------------------------------------------------------------------
+# The split flash-decode of flash_decode.cuh, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+SPLIT_TILE = 32     # tokens of a scan tile; tile t belongs to CTA t % nsplit
+SPLIT_WARPS = 4     # a CTA's warps take its listed rows a stage in turn
+SPLIT_STAGE = 8     # listed rows a warp takes a stage
+
+
+def merge_partials(parts, fault=None):
+    """Partial softmax states (m (G,), l (G,), acc (G, hd)) merged with the
+    rescale exp(m_i - M), M their largest m. ``fault``: "alpha" leaves the
+    rescale out, "drop" leaves out the last part holding keys."""
+    if fault == "drop":
+        held = [i for i, (_, l, _) in enumerate(parts) if bool(l.any())]
+        parts = [x for i, x in enumerate(parts) if not held or i != held[-1]]
+    big = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    sc = [torch.ones_like(m) if fault == "alpha" else torch.exp(m - big)
+          for m, _, _ in parts]
+    l = sum(x[1] * c for x, c in zip(parts, sc))
+    acc = sum(x[2] * c[:, None] for x, c in zip(parts, sc))
+    return big, l, acc
+
+
+def emulate_split_decode(q, keys, values, valid, nsplit, *, softcap,
+                         fault=None):
+    """The split flash-decode's arithmetic, float32: q (N, G, hd), one
+    query per (KV head, sequence) row; keys/values (N, C, hd) the row's
+    candidate tokens in the kernels' order, valid (N, C) their mask.
+    Candidate tile t belongs to CTA t % nsplit; a CTA lists its valid
+    tokens in order and its warps take stages of SPLIT_STAGE listed rows
+    in turn, each warp an online softmax (m, l, acc) with one rescale a
+    stage; a CTA merges its warps, then the cluster its CTAs. An empty
+    warp or CTA carries m = -2^30, l = 0, acc = 0. ``fault`` as in
+    ``merge_partials``, applied to the CTAs' merge. -> (N, G, hd)."""
+    N, G, hd = q.shape
+    C = keys.shape[1]
+    owner = torch.arange(C) // SPLIT_TILE % nsplit
+    out = torch.zeros(N, G, hd)
+    for n in range(N):
+        s = q[n].float() @ keys[n].float().T * hd ** -0.5         # (G, C)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        ctas = []
+        for r in range(nsplit):
+            listed = torch.nonzero(valid[n] & (owner == r)).flatten()
+            warps = []
+            for w in range(SPLIT_WARPS):
+                m = torch.full((G,), tref.NEG_INF)
+                l, acc = torch.zeros(G), torch.zeros(G, hd)
+                for j in range(w, -(-len(listed) // SPLIT_STAGE),
+                               SPLIT_WARPS):
+                    rows = listed[j * SPLIT_STAGE:(j + 1) * SPLIT_STAGE]
+                    mx = torch.maximum(m, s[:, rows].amax(dim=1))
+                    alpha = torch.exp(m - mx)
+                    p = torch.exp(s[:, rows] - mx[:, None])
+                    l = l * alpha + p.sum(dim=1)
+                    acc = acc * alpha[:, None] + p @ values[n, rows].float()
+                    m = mx
+                warps.append((m, l, acc))
+            ctas.append(merge_partials(warps))
+        _, l, acc = merge_partials(ctas, fault)
+        out[n] = acc / l.clamp_min(1e-30)[:, None]
+    return out
+
+
+def split_candidates_slot(q, k, v, kpos, q_pos, window):
+    """A slot cache as the kernel sees it: (KV head, sequence) rows, the
+    tokens [0, M) of a ring or [0, q_pos] without a window, and the mask."""
+    B, H, hd = q.shape
+    M, KH = k.shape[1], k.shape[2]
+    rows = [x.permute(0, 2, 1, 3).reshape(B * KH, M, hd) for x in (k, v)]
+    n = torch.arange(M)[None]
+    valid = (kpos >= 0) & (kpos <= q_pos[:, None])
+    if window:
+        valid &= kpos > q_pos[:, None] - window
+    else:
+        valid &= n <= q_pos[:, None]
+    valid = valid.repeat_interleave(KH, dim=0)
+    return q.reshape(B * KH, H // KH, hd), *rows, valid
+
+
+def split_candidates_paged(q, k_pages, v_pages, kpos_pages, block_table,
+                           q_pos, window):
+    """A page pool as the kernel sees it: token n of sequence b is slot
+    n % ps of page block_table[b, n // ps]; the null page holds nothing."""
+    B, H, hd = q.shape
+    ps, KH = k_pages.shape[1], k_pages.shape[2]
+    bt = block_table.long()
+    rows = [x[bt].reshape(B, -1, KH, hd).permute(0, 2, 1, 3).reshape(
+        B * KH, -1, hd) for x in (k_pages, v_pages)]
+    kpos = kpos_pages[bt].reshape(B, -1)
+    valid = ((bt != 0).repeat_interleave(ps, dim=1) & (kpos >= 0)
+             & (kpos <= q_pos[:, None]))
+    if window:
+        valid &= kpos > q_pos[:, None] - window
+    valid = valid.repeat_interleave(KH, dim=0)
+    return q.reshape(B * KH, H // KH, hd), *rows, valid
+
+
+def split_case(kind, case):
+    """float32 inputs of a SINGLE (paged) or DECODE (slot) sweep case,
+    the kernel's candidate form, window and softcap."""
+    if kind == "paged":
+        B, H, KH, hd, ps, pmax, win, cap, inactive = SINGLE[case]
+        a = paged_fixture(B * 1000 + pmax * 10 + ps, B, 1, H, KH, hd, ps,
+                          pmax, inactive)
+        arrays = (a[0][:, 0],) + a[1:5] + (a[5][:, 0],)
+        th = torch_inputs(arrays, "float32")
+        cand = split_candidates_paged(*th, win)
+    else:
+        B, H, KH, hd, M, win, cap, inactive = DECODE[case]
+        arrays = slot_fixture(B * 100 + M * 7 + hd, B, H, KH, hd, M, win,
+                              inactive)
+        th = torch_inputs(arrays, "float32")
+        cand = split_candidates_slot(*th, win)
+    return arrays, th, cand, win, cap, inactive
+
+
+_PALLAS_SPLIT = {}
+
+
+def pallas_output(jx, kind, case):
+    """The JAX Pallas kernel (interpret mode) on a sweep case, once."""
+    if (kind, case) not in _PALLAS_SPLIT:
+        arrays, _, _, win, cap, _ = split_case(kind, case)
+        ja = jax_inputs(jx, arrays, "float32")
+        fn = jx.pallas_single if kind == "paged" else jx.pallas_decode
+        _PALLAS_SPLIT[kind, case] = np.asarray(
+            fn(*ja, window=win, softcap=cap, interpret=True), np.float32)
+    return _PALLAS_SPLIT[kind, case]
+
+
+SPLIT_CASES = ([("paged", i) for i in range(len(SINGLE))]
+               + [("slot", i) for i in range(len(DECODE))])
+
+
+@pytest.mark.parametrize("nsplit", range(1, 9))
+@pytest.mark.parametrize("kind,case", SPLIT_CASES)
+def test_split_decode_emulation(jx, kind, case, nsplit):
+    """Split over 1-8 CTAs and merged, the flash-decode arithmetic equals
+    the plain version and the JAX Pallas kernel within the card's float32
+    tolerance (1e-5); inactive rows come out exactly 0."""
+    _, th, cand, win, cap, inactive = split_case(kind, case)
+    B, H, hd = th[0].shape
+    got = emulate_split_decode(*cand, nsplit, softcap=cap).reshape(B, H, hd)
+    plain = (tref.paged_decode_attention_ref if kind == "paged"
+             else tref.decode_attention_ref)
+    assert max_err(got, plain(*th, window=win, softcap=cap)) <= 1e-5
+    assert max_err(got, pallas_output(jx, kind, case)) <= 1e-5
+    assert torch.all(got[list(inactive)] == 0)
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 5, 8])
+def test_split_decode_all_inactive_rows_are_zero(nsplit):
+    """A batch whose every row is inactive: every CTA is empty (m = -2^30,
+    l = 0) and the merge gives exactly 0."""
+    arrays = slot_fixture(5, 3, 4, 2, 32, 70, 64, inactive=(0, 1, 2))
+    cand = split_candidates_slot(*torch_inputs(arrays, "float32"), 64)
+    got = emulate_split_decode(*cand, nsplit, softcap=0.0)
+    assert not cand[3].any() and torch.all(got == 0)
+
+
+@pytest.mark.parametrize("fault", ["alpha", "drop"])
+@pytest.mark.parametrize("kind,nsplit", [("slot", 2), ("slot", 3),
+                                         ("paged", 2), ("paged", 4)])
+def test_split_merge_fault_is_caught(kind, nsplit, fault):
+    """A merge that leaves out the CTAs' rescale, or one CTA's keys, puts
+    the result past the 1e-5 tolerance: the check tells a wrong merge."""
+    lengths = [150, 97, 64, 200]
+    if kind == "slot":
+        th = torch_inputs(slot_fixture(21, 4, 4, 2, 32, 200, 0,
+                                       lengths=lengths), "float32")
+        cand, want = (split_candidates_slot(*th, 0),
+                      tref.decode_attention_ref(*th))
+    else:
+        th = torch_inputs(paged_fixture(22, 4, 1, 4, 2, 32, 16, 13,
+                                        lengths=lengths), "float32")
+        th = [th[0][:, 0], *th[1:5], th[5][:, 0]]
+        cand, want = (split_candidates_paged(*th, 0),
+                      tref.paged_decode_attention_ref(*th))
+    good = emulate_split_decode(*cand, nsplit, softcap=0.0).reshape(
+        want.shape)
+    bad = emulate_split_decode(*cand, nsplit, softcap=0.0,
+                               fault=fault).reshape(want.shape)
+    assert max_err(good, want) <= 1e-5 < max_err(bad, want)
+
+
+# The edges of the split on the card (the CUDA kernels): (label, kind, B,
+# H, KH, hd, M or (ps, pmax), window, softcap, lengths, inactive rows).
+SPLIT_EDGES = [
+    ("B=1 ring, full", "slot", 1, 16, 8, 256, 4097, 4096, 50.0, [6000], ()),
+    ("B=1 global", "slot", 1, 16, 8, 256, 4609, 0, 50.0, [4000], ()),
+    ("B=1 MQA ring", "slot", 1, 4, 1, 256, 512, 512, 0.0, [700], ()),
+    ("lengths 1..one round", "slot", 9, 16, 8, 256, 1100, 0, 0.0,
+     [1, 15, 32, 33, 255, 256, 257, 1100, 900], (8,)),
+    ("ring, keys in one CTA", "slot", 4, 25, 5, 64, 1025, 1024, 0.0,
+     [20, 1, 32, 33], ()),
+    ("ring window edge", "slot", 4, 16, 8, 256, 1025, 1000, 50.0,
+     [3000, 1030, 1011, 500], (3,)),
+    ("B=1 pages, full", "paged", 1, 32, 8, 128, (16, 64), 0, 0.0, [1024],
+     ()),
+    ("lengths 1..one round", "paged", 9, 32, 8, 128, (16, 64), 0, 0.0,
+     [1, 15, 32, 33, 255, 256, 257, 1024, 900], (8,)),
+    ("pmax=256", "paged", 4, 32, 8, 128, (16, 256), 0, 0.0,
+     [4096, 4095, 3001, 17], ()),
+    ("window 200", "paged", 4, 16, 8, 256, (16, 64), 200, 50.0,
+     [1000, 700, 333, 90], (2,)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("edge", SPLIT_EDGES, ids=lambda e: f"{e[1]}-{e[0]}")
+def test_cuda_split_edges_match_plain(edge, dtype):
+    """On a card: the split flash-decode kernels at the edges of their
+    split (B=1, rows of 1 and ps - 1 tokens and one round of tiles, keys
+    in one CTA, 4096-token tables, a window edge inside a tile) against
+    their plain versions; inactive rows exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import paged_decode_attention as paged
+    _, kind, B, H, KH, hd, size, win, cap, lengths, inactive = edge
+    if kind == "slot":
+        th = [t.cuda() for t in torch_inputs(slot_fixture(
+            B + hd, B, H, KH, hd, size, win, inactive, lengths), dtype)]
+        got = dec.decode_attention(*th, window=win, softcap=cap)
+        want = tref.decode_attention_ref(*th, window=win, softcap=cap)
+    else:
+        ps, pmax = size
+        a = paged_fixture(B + hd, B, 1, H, KH, hd, ps, pmax, inactive,
+                          lengths)
+        th = [t.cuda() for t in torch_inputs(
+            (a[0][:, 0],) + a[1:5] + (a[5][:, 0],), dtype)]
+        got = paged.paged_decode_attention(*th, window=win, softcap=cap)
+        want = tref.paged_decode_attention_ref(*th, window=win, softcap=cap)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        assert float(diff.max()) <= 1e-5
+    else:                                   # one bf16 rounding of the output
+        assert float(diff.max()) <= 2e-2
+        assert torch.all(diff <= 2.0 ** -7 * want.float().abs() + 1e-4)
+    assert torch.all(got[list(inactive)] == 0)
 
 
 def ssd_fixture(seed, B, L, nh, hp, N, decay=1.0):
