@@ -936,8 +936,9 @@ def decode_split(kernel, dtype, **shape):
 # Edges of the split over a cluster: (label, arch, B, ps, pmax, lengths,
 # window, softcap, inactive rows). "edges" = rows of 1 and ps - 1 tokens,
 # one scan tile (32) and one more token, one round of tiles over the split
-# (32 * nsplit) and either side of it, then full rows (the last inactive). A row of at most 32
-# tokens, or a window of 16, puts every valid key in one CTA's tiles.
+# (32 * nsplit) and either side of it, then full rows (the last
+# inactive). A row of at most 32 tokens, or a window of 16, puts every
+# valid key in one CTA's tiles.
 PAGED_EDGES = [
     ("B=1 full table", "granite-3-8b", 1, 16, 64, [1024], 0, 0.0, ()),
     ("B=1 hd 256", "gemma2-9b", 1, 16, 64, [1000], 0, 50.0, ()),

@@ -50,9 +50,12 @@
 //    stage s is computed, and no barrier wider than the warp is taken. A
 //    warp's lanes form groups of TPR lanes, a group taking one row at a
 //    time, 16 bytes a lane, and keeping its own online softmax (m, l, acc)
-//    of the G heads in registers, rescaled once a stage. Each score is
-//    summed over the group by a butterfly of shuffles; every lane then
-//    soft-caps and exponentiates every score of its group.
+//    of the G heads in registers, rescaled once a stage. The group's
+//    G x RPG partial dots of a stage are summed by a reduce-scatter over
+//    its lanes (reduce_scatter), so each lane scales, soft-caps and
+//    exponentiates one or a few scores and shuffles them back to all:
+//    with every lane repeating every tanhf and expf, the instructions, not
+//    the bytes, had set the pace.
 // 4. Merge once. A warp merges its groups by shuffles, the CTA its warps
 //    through shared memory; then, after cluster.sync(), each CTA reads every
 //    CTA's partial (m, l, acc) through distributed shared memory and writes
@@ -365,52 +368,73 @@ __global__ void __launch_bounds__(kThreads, 2) decode_kernel(
       __syncwarp();
       const unsigned char* st = wring + (s % kStages) * STAGE;
       const int row0 = (s * kWarps + w) * NR;
-      float sc[GMAX][RPG];
-      bool ok[RPG];
+      // partial dots of this lane's slice, then each lane's share of the
+      // G*RPG sums: the softcap and the exponentials run once per score
+      constexpr int N = GMAX * RPG, VPL = N / TPR > 0 ? N / TPR : 1;
+      float part[N];
 #pragma unroll
       for (int i = 0; i < RPG; ++i) {
         const int r = grp + i * RW;
-        ok[i] = row0 + r < nv;
         float kf[EPL];
 #pragma unroll
         for (int lv = 0; lv < LV; ++lv)
           to_f32<T>(*reinterpret_cast<const uint4*>(
                         st + r * ROWB + (lv * TPR + li) * 16),
                     kf + lv * VEC);
-        float d[GMAX];
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
-          d[g] = 0.f;
+          float d = 0.f;
 #pragma unroll
-          for (int j = 0; j < EPL; ++j) d[g] = fmaf(qr[g][j], kf[j], d[g]);
+          for (int j = 0; j < EPL; ++j) d = fmaf(qr[g][j], kf[j], d);
+          part[g * RPG + i] = d;
         }
-#pragma unroll
-        for (int off = TPR / 2; off > 0; off /= 2)
-#pragma unroll
-          for (int g = 0; g < GMAX; ++g)
-            d[g] += __shfl_xor_sync(kAll, d[g], off);
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g)
-          sc[g][i] = ok[i] ? cap_score(d[g] * scale, softcap) : kNegInf;
       }
+      reduce_scatter<N, TPR / 2>(part, li);
+      float mine[VPL];
+      bool okv[VPL];
+      int gv[VPL];
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        const int idx = scatter_index<N, TPR>(li, j);
+        gv[j] = idx / RPG;
+        okv[j] = gv[j] < G && row0 + grp + idx % RPG * RW < nv;
+        mine[j] = okv[j] ? cap_score(part[j] * scale, softcap) : kNegInf;
+      }
+      float sc[GMAX][RPG];
+#pragma unroll
+      for (int idx = 0; idx < N; ++idx)
+        sc[idx / RPG][idx % RPG] = __shfl_sync(
+            kAll, mine[idx % VPL], grp * TPR + scatter_owner(idx, N, TPR));
       // online softmax of this group's rows, one rescale a stage
+      float alpha[GMAX];
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
-        if (g >= G) break;
         float mx = m[g];
 #pragma unroll
         for (int i = 0; i < RPG; ++i) mx = fmaxf(mx, sc[g][i]);
-        const float alpha = expf(m[g] - mx);
+        alpha[g] = expf(m[g] - mx);
         m[g] = mx;
+      }
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        float mg = kNegInf;
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) mg = g == gv[j] ? m[g] : mg;
+        mine[j] = okv[j] ? expf(mine[j] - mg) : 0.f;
+      }
+#pragma unroll
+      for (int idx = 0; idx < N; ++idx)
+        sc[idx / RPG][idx % RPG] = __shfl_sync(
+            kAll, mine[idx % VPL], grp * TPR + scatter_owner(idx, N, TPR));
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        if (g >= G) break;
         float sum = 0.f;
 #pragma unroll
-        for (int i = 0; i < RPG; ++i) {
-          sc[g][i] = ok[i] ? expf(sc[g][i] - mx) : 0.f;
-          sum += sc[g][i];
-        }
-        l[g] = l[g] * alpha + sum;
+        for (int i = 0; i < RPG; ++i) sum += sc[g][i];
+        l[g] = l[g] * alpha[g] + sum;
 #pragma unroll
-        for (int j = 0; j < EPL; ++j) acc[g][j] *= alpha;
+        for (int j = 0; j < EPL; ++j) acc[g][j] *= alpha[g];
       }
 #pragma unroll
       for (int i = 0; i < RPG; ++i) {
