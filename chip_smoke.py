@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-decode CSRC_DIR [CSRC_DIR ...]
+    python3 chip_smoke.py --compare-ssd CSRC_DIR [CSRC_DIR ...]
 
-The second form only times the single-query decode kernels built from
-each kernel source directory, in turns (``compare_decode``), for instance
-a parent commit's ``src/repro_torch/kernels/csrc`` beside this one's.
+The other forms only time the single-query decode kernels
+(``compare_decode``) or ``ssd_scan`` (``compare_ssd_builds``) built from
+each kernel source directory, in turns, for instance a parent commit's
+``src/repro_torch/kernels/csrc`` beside this one's.
 
 Phases, in order (any failure exits non-zero; nothing is passed over):
 
@@ -15,8 +17,9 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
 2. build every CUDA kernel from the sources in this checkout (one ``nvcc``
    per source, all at once), print the build time and what ptxas reports,
    and count the ``HGMMA`` (wgmma) instructions ``cuobjdump -sass`` finds
-   in the ``flash_attention`` and ``paged_decode_attention`` libraries
-   (none fails: their bf16 kernels run on the tensor cores);
+   in the ``flash_attention``, ``paged_decode_attention`` and
+   ``ssd_scan`` libraries (none fails: their bf16 kernels run on the
+   tensor cores);
 3. hold each kernel against its plain PyTorch version on the card, float32
    and bfloat16, with inactive (q_pos = -1) rows and a logit softcap:
    the paged kernels at the shapes of ``granite-3-8b``, ``trail-llama``
@@ -34,7 +37,8 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    inactive but two sequences'; ``probe_update`` at
    ``gemma2-9b`` width, 16 rows and 1, bfloat16 and float32 taps, with a
    row whose posterior sums to 0 (the prior fallback); ``ssd_scan`` at
-   the shapes of ``tests/test_kernels.py``, of ``mamba2-370m`` (16 x 256,
+   the shapes of ``tests/test_kernels.py``, at hp 33 and N 13 (rows of
+   odd byte length), of ``mamba2-370m`` (16 x 256,
    32 heads of 64, state 128, chunk 128) and ``hymba-1.5b`` (50 heads,
    state 16) and at the L=8 bucket, all from a nonzero initial state,
    plus rows whose tail has dt = 0 (their state equals the shorter
@@ -42,14 +46,16 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    element: float32 |kernel - plain| <= 1e-5; bfloat16 at most 2e-2 and
    at most one bf16 rounding of the output, 2**-7 * |plain| + 1e-4 (both
    versions compute in float32 and round once), except for the two
-   tensor-core kernels (``flash_attention`` and
+   tensor-core attention kernels (``flash_attention`` and
    ``paged_decode_attention_multi`` in bf16), which round P to bf16
    before P V and are held to ``tc_attention_bound``; probe outputs
    (probabilities, always float32) 1e-5, as float32 sums over 3584 and
    512 terms are taken in another order; ``ssd_scan``'s outputs (float32
-   for either input type, from the same rounded inputs) 1e-5 of the
-   output's scale, max(1, max |plain|), as its sums over up to 128
-   terms are taken in another order;
+   for either input type): float32 inputs 1e-5 of the output's scale,
+   max(1, max |plain|), as its sums over up to 128 terms are taken in
+   another order; bf16 inputs run on the tensor cores, which round M to
+   bf16 and pass the state and x w as bf16 hi/lo pairs, and are held to
+   ``ssd_tc_bound`` per element;
 4. time each kernel at its path's shapes with CUDA events, beside its
    plain version, the least time the card could take (its bound) and one
    PyTorch library call computing the same function as a yardstick
@@ -60,13 +66,15 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    serves' shapes a call takes less device time than its wrapper takes
    on the host), also at the shapes the serves launch most: the gemma2-9b
    and hymba-1.5b local rings holding 300 positions and granite's
-   28-page tables holding about 300 tokens;
+   28-page tables holding about 300 tokens; ``ssd_scan`` at a prefill
+   chunk's shape of mamba2-370m and hymba-1.5b and at the tap harvest's
+   (mamba2-370m, 8 x 512 from a zero state);
 5. hold the model on the card against the same weights on the CPU in
    float32: ``granite-smoke`` (paged), ``gemma2-smoke`` (contiguous and
-   paged), ``mamba2-smoke`` and ``hymba-smoke`` (contiguous), two
-   prefill chunks (24 and 20 tokens, so the rings of 16 wrap; one row
-   padded in the first) and a megastep with an inactive row: greedy
-   tokens equal, logits within 1e-4;
+   paged), ``mamba2-smoke`` and ``hymba-smoke`` (contiguous and
+   paged), two prefill chunks (24 and 20 tokens, so the rings of 16
+   wrap; one row padded in the first) and a megastep with an inactive
+   row: greedy tokens equal, logits within 1e-4;
 6. serve ``granite-3-8b`` at full width (40 layers, random weights from a
    seed) through ``run_policy(mode="real", kv_layout="paged",
    policy="trail", probe_interval=4)`` with the probe predictor; step a
@@ -161,7 +169,8 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}        # max |kernel - plain|
 ROUNDING = {"float32": None, "bfloat16": (2.0 ** -7, 1e-4)}   # (rel, abs)
 TC_KERNELS = ("flash_attention", "paged_decode_attention_multi")  # bf16: wgmma
 PORT_KERNELS = (r"flash_attention_(tc_)?kernel|paged_multi_(tc_)?kernel|"
-                r"decode_kernel|probe_(hidden|filter)_kernel|ssd_scan_kernel")
+                r"decode_kernel|probe_(hidden|filter)_kernel|"
+                r"ssd_scan_(tc_)?kernel")
 PROBE_TOL = 1e-5
 PAGED_ARGS = ("q", "k_pages", "v_pages", "kpos_pages", "block_table", "q_pos")
 SLOT_ARGS = ("q", "k", "v", "kpos", "q_pos")
@@ -514,24 +523,64 @@ def ssd_bound(case, chunk, dtype):
     return bound_ms(nbytes, ops, dtype)
 
 
-def compare_ssd(label, got, want, parts=("y", "state")):
-    """``ssd_scan``'s outputs (y, final state) against its plain version:
-    max |kernel - plain| within 1e-5 of max(1, max |plain|). Returns the
-    max absolute error."""
+def compare_ssd(label, got, want, parts=("y", "state"), bounds=None):
+    """``ssd_scan``'s outputs (y, final state) against its plain version.
+    Without ``bounds`` (float32, or a kernel against itself): max
+    |kernel - plain| within 1e-5 of max(1, max |plain|). With ``bounds``
+    (bf16 on the tensor cores), every element within its part's
+    ``ssd_tc_bound``. Returns the max absolute error."""
     worst = 0.0
-    for part, a, b in zip(parts, got, want):
+    for k, (part, a, b) in enumerate(zip(parts, got, want)):
         if a.dtype != b.dtype or a.shape != b.shape:
             fail(f"ssd_scan {part}: {a.dtype}{tuple(a.shape)} vs "
                  f"{b.dtype}{tuple(b.shape)}")
-        err = float((a - b).abs().max())
+        diff = (a - b).abs()
+        err = float(diff.max())
         scale = max(1.0, float(b.abs().max()))
+        if bounds is None:
+            ok, what = err <= 1e-5 * scale, "tol 1e-5 of scale"
+        else:
+            over = int((diff > bounds[k]).sum())
+            ok, what = over == 0, f"{over} element(s) past ssd_tc_bound"
         log(f"[check] {'ssd_scan ' + part:30s} {label}: max|kernel-plain|="
-            f"{err:.3e} of scale {scale:.1f} (tol 1e-5 of scale)")
-        if not err <= 1e-5 * scale:
+            f"{err:.3e} of scale {scale:.1f} ({what})")
+        if not ok:
             fail(f"ssd_scan {part} disagrees with its plain version "
-                 f"({label}): {err} of scale {scale}")
+                 f"({label}): {err} of scale {scale}, {what}")
         worst = max(worst, err)
     return worst
+
+
+def ssd_tc_bound(plain_y, plain_s, mag_y, mag_s):
+    """Per-element bounds on |kernel - plain| for the bf16 results of the
+    tensor-core ``ssd_scan``: (the bound on y, the bound on the final
+    state).
+
+    ``mag_y`` and ``mag_s`` are A_y and A_s, the plain version's y and
+    final state on (|x|, dt, A, |Bm|, |Cm|, |s0|): each term of the true
+    sums is at most the matching term of that run. The kernel rounds M =
+    (C B^T) exp(cum_t - cum_s) dt_s to bf16 once, which moves each intra
+    term of y by at most 2^-8 of itself, so y by at most 2^-8 A_y; the
+    state S (in the readout) and x w (in the state update) pass to the
+    tensor cores as bf16 pairs hi = bf16(v), lo = bf16(v - hi), which move
+    each of their terms by at most 2^-16 of itself, carried chunk to
+    chunk with the same decay as the terms. So y within 2^-7 A_y (twice
+    M's rounding, the margin covering the split's share) and the state
+    within 2^-14 A_s (four times the split's), each plus 1e-5 of the
+    output's scale max(1, max |plain|) for float32 sums taken in another
+    order. C, B and x arrive in bf16 and are exact operands."""
+    def scale(t):
+        return 1e-5 * max(1.0, float(t.abs().max()))
+    return (2.0 ** -7 * mag_y.float() + scale(plain_y),
+            2.0 ** -14 * mag_s.float() + scale(plain_s))
+
+
+def ssd_magnitudes(ref, case, chunk):
+    """A_y and A_s of ``ssd_tc_bound``: the plain version on |x|, |Bm|,
+    |Cm| and |s0| (dt and A as they are)."""
+    mag = {k: (v.abs() if k in ("x", "Bm", "Cm", "init_state") else v)
+           for k, v in case.items()}
+    return ref.ssd_scan_ref(**mag, chunk=chunk)
 
 
 def tc_attention_bound(plain, magnitude):
@@ -610,7 +659,7 @@ def phase_build():
         for kernel, usage in ptxas_usage(report):
             log(f"[build] {name}: {kernel}: {usage}")
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    for name in ("flash_attention", "paged_decode_attention"):
+    for name in ("flash_attention", "paged_decode_attention", "ssd_scan"):
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(build.library_path(name))],
                               capture_output=True, text=True, check=True)
@@ -676,10 +725,17 @@ SSD_CASES = [  # label, B, L, nh, hp, N, chunk, decay of A
     ("sweep", 2, 64, 4, 32, 16, 16, 1.0),
     ("sweep", 1, 128, 2, 64, 32, 32, 1.0),
     ("sweep", 2, 96, 3, 32, 8, 32, 1.0),
+    ("odd widths", 2, 64, 3, 33, 13, 32, 1.0),    # rows of odd byte length
     ("mamba2-370m", 16, 256, 32, 64, 128, 128, 0.05),
     ("hymba-1.5b", 16, 256, 50, 64, 16, 128, 0.05),
     ("L=8 bucket", 16, 8, 32, 64, 128, 8, 0.05),
 ]
+
+SSD_TIMED = {  # label: B, L, nh, N, from an initial state (bf16, hp 64)
+    "ssd_scan[mamba2-370m]": (16, 256, 32, 128, True),
+    "ssd_scan[hymba-1.5b]": (16, 256, 50, 16, True),
+    "ssd_scan[mamba2-370m,harvest]": (8, 512, 32, 128, False),
+}
 
 FLASH_TIMED = {  # arch: B, S, H, KH, hd, window, softcap (bf16)
     "trail-llama": (8, 512, 12, 4, 64, 0, 0.0),
@@ -742,8 +798,10 @@ def phase_check_flash(torch):
 
 def phase_check_ssd(torch):
     """``ssd_scan`` against its plain version from an initial state, both
-    input types; rows whose tail has dt = 0 end in the shorter scan's
-    state; a scan in two halves equals one. Returns the worst error at
+    input types (bf16 to ``ssd_tc_bound``, float32 to 1e-5 of scale);
+    rows whose tail has dt = 0 end in the shorter scan's state (within
+    the bound of the plain one's, bit for bit the kernel's); a scan in two
+    halves equals one within 1e-5. Returns the worst error at
     mamba2-370m's bf16 shape (the one its row in the JSON line times)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd
@@ -754,12 +812,15 @@ def phase_check_ssd(torch):
                             seed=i, decay=decay)
             got = ssd.ssd_scan(**case, chunk=chunk)
             want = ref.ssd_scan_ref(**case, chunk=chunk)
+            bounds = (ssd_tc_bound(*want, *ssd_magnitudes(ref, case, chunk))
+                      if dtype == "bfloat16" else None)
             torch.cuda.synchronize()
             err = compare_ssd(f"{label:12s} {dtype:8s} B={B} L={L} nh={nh} "
-                              f"hp={hp} N={N} chunk={chunk}", got, want)
+                              f"hp={hp} N={N} chunk={chunk}", got, want,
+                              bounds=bounds)
             if label == "mamba2-370m" and dtype == "bfloat16":
                 worst = err
-            del case, got, want
+            del case, got, want, bounds
     # mamba2's shape: rows 0-3 idle (dt = 0) from position 128 (a whole
     # chunk), rows 4-7 from position 100; their states against the scan of
     # the positions before (bit for bit against the kernel's: dt = 0 adds
@@ -774,10 +835,13 @@ def phase_check_ssd(torch):
                 for k, v in case.items() if k != "init_state"}
         part["init_state"] = case["init_state"][rows].contiguous()
         _, s_short = ssd.ssd_scan(**part, chunk=n)
-        _, s_plain = ref.ssd_scan_ref(**part, chunk=n)
+        y_plain, s_plain = ref.ssd_scan_ref(**part, chunk=n)
+        _, bound = ssd_tc_bound(y_plain, s_plain,
+                                *ssd_magnitudes(ref, part, n))
         torch.cuda.synchronize()
         compare_ssd(f"rows idle from {n} vs the {n}-position scan",
-                    (s[rows],), (s_plain,), parts=("state",))
+                    (s[rows],), (s_plain,), parts=("state",),
+                    bounds=(bound,))
         same = bool(torch.equal(s[rows], s_short))
         log(f"[check] ssd_scan idle tail from {n}: state bit-equal to the "
             f"kernel's {n}-position scan: {same}")
@@ -1102,21 +1166,13 @@ def decode_timed_case(torch, kind, spec, with_split=True):
             slot_bound(case, window, "bfloat16"))
 
 
-def compare_decode(torch, dirs):
-    """``--compare-decode DIR ...``: build ``decode_attention.cu`` and
-    ``paged_decode_attention.cu`` from each kernel source directory DIR
-    (``src/repro_torch/kernels/csrc`` of this checkout or of another one,
-    say the parent commit's from ``git archive``; their C entries are the
-    same) and time their single-query entries at the DECODE_TIMED shapes
-    in turns (first to last, then last to first), each as a CUDA graph of
-    30 calls, beside the library call. Each build's result is first held
-    against the plain version."""
+def build_entries(dirs, sig):
+    """Build ``<name>.cu`` for each name of ``sig`` from each kernel source
+    directory (one ``nvcc`` each, all at once, into ``build/compare/<i>``)
+    and return, per directory, each name's ``<name>_launch`` entry with
+    the C argument types ``sig`` gives."""
     import ctypes
-    from repro_torch.kernels import build, ref
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sig = {"decode_attention": [ptr] * 6 + [i32] * 6 + [f32, i32, f32, ptr],
-           "paged_decode_attention":
-               [ptr] * 7 + [i32] * 7 + [f32, i32, f32, ptr]}
+    from repro_torch.kernels import build
     outs = [build.BUILD_DIR.parent / "compare" / str(i)
             for i in range(len(dirs))]
     jobs = []
@@ -1132,6 +1188,8 @@ def compare_decode(torch, dirs):
         report, _ = proc.communicate()
         if proc.returncode:
             fail(f"{' '.join(cmd)} failed:\n{report}")
+        for kernel, usage in ptxas_usage(report):
+            log(f"[build] {cmd[-1]}: {kernel}: {usage}")
     entries = []
     for out in outs:
         entry = {}
@@ -1141,6 +1199,25 @@ def compare_decode(torch, dirs):
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             entry[name] = fn
         entries.append(entry)
+    return entries
+
+
+def compare_decode(torch, dirs):
+    """``--compare-decode DIR ...``: build ``decode_attention.cu`` and
+    ``paged_decode_attention.cu`` from each kernel source directory DIR
+    (``src/repro_torch/kernels/csrc`` of this checkout or of another one,
+    say the parent commit's from ``git archive``; their C entries are the
+    same) and time their single-query entries at the DECODE_TIMED shapes
+    in turns (first to last, then last to first), each as a CUDA graph of
+    30 calls, beside the library call. Each build's result is first held
+    against the plain version."""
+    import ctypes
+    from repro_torch.kernels import ref
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    entries = build_entries(dirs, {
+        "decode_attention": [ptr] * 6 + [i32] * 6 + [f32, i32, f32, ptr],
+        "paged_decode_attention":
+            [ptr] * 7 + [i32] * 7 + [f32, i32, f32, ptr]})
     for label, kind, spec in DECODE_TIMED:
         args, window, cap, shape, lib, (b_ms, by) = decode_timed_case(
             torch, kind, spec, with_split=False)
@@ -1177,6 +1254,63 @@ def compare_decode(torch, dirs):
             f"{d}: {min(t):.4f} ms ({100 * b_ms / min(t):.1f}% of bound)"
             for d, t in zip(dirs, times))
             + f"; library {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({by})")
+
+
+def ssd_timed_case(torch, spec):
+    """Inputs (bf16) and shape text of an SSD_TIMED row."""
+    B, L, nh, N, carried = spec
+    case = ssd_case(torch, B=B, L=L, nh=nh, hp=64, N=N, dtype="bfloat16",
+                    seed=12, decay=0.05)
+    if not carried:
+        del case["init_state"]
+    return case, (f"B={B} L={L} nh={nh} hp=64 N={N} chunk=128 bf16, "
+                  + ("initial state" if carried else "zero initial state"))
+
+
+def compare_ssd_builds(torch, dirs):
+    """``--compare-ssd DIR ...``: build ``ssd_scan.cu`` from each kernel
+    source directory DIR (this checkout's or, say, the parent commit's
+    from ``git archive``; the C entry is the same) and time it at the
+    SSD_TIMED shapes in turns (first to last, then last to first), each
+    build first held against the plain version (``ssd_tc_bound``)."""
+    import ctypes
+    from repro_torch.kernels import ref
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    entries = build_entries(dirs, {"ssd_scan": [ptr] * 8 + [i32] * 7 + [ptr]})
+    for label, spec in SSD_TIMED.items():
+        case, shape = ssd_timed_case(torch, spec)
+        x = case["x"]
+        B, L, nh, hp = x.shape
+        N = case["Bm"].shape[-1]
+        y = torch.empty((B, L, nh, hp), dtype=torch.float32, device="cuda")
+        s_fin = torch.empty((B, nh, hp, N), dtype=torch.float32,
+                            device="cuda")
+        s0 = case.get("init_state")
+        want = ref.ssd_scan_ref(**case, chunk=128)
+        bounds = ssd_tc_bound(*want, *ssd_magnitudes(ref, case, 128))
+        fns = []
+        for d, entry in zip(dirs, entries):
+            def launch(fn=entry["ssd_scan"], d=d):
+                err = fn(*(case[k].data_ptr() for k in
+                           ("x", "dt", "A", "Bm", "Cm")),
+                         None if s0 is None else s0.data_ptr(),
+                         y.data_ptr(), s_fin.data_ptr(), 1, B, L, nh, hp, N,
+                         128, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    fail(f"{label} ({d}): CUDA error {err}")
+            launch()
+            torch.cuda.synchronize()
+            compare_ssd(f"{label} ({d})", (y, s_fin), want, bounds=bounds)
+            fns.append(launch)
+        times = [[] for _ in fns]
+        for i in [*range(len(fns)), *reversed(range(len(fns)))]:
+            times[i].append(time_ms(torch, fns[i]))
+        b_ms, by = ssd_bound(case, 128, "bfloat16")
+        log(f"[compare] {label} {shape}: " + "; ".join(
+            f"{d}: {min(t):.4f} ms ({100 * b_ms / min(t):.1f}% of bound)"
+            for d, t in zip(dirs, times))
+            + f"; bound {b_ms:.4f} ms ({by})")
+        del case, y, s_fin, want, bounds
 
 
 def phase_time(torch):
@@ -1252,15 +1386,12 @@ def phase_time(torch):
         lambda: ref.probe_update_ref(*args), None, probe_bound(case),
         timer=time_cold_ms)
 
-    # ssd_scan: one prefill chunk of a full slot batch, from a carried state
+    # ssd_scan: one prefill chunk of a full slot batch from a carried
+    # state, and one tap-harvest forward (8 x 512) from zeros
     from repro_torch.kernels import ssd_scan as ssd
-    for arch, (nh, N) in (("mamba2-370m", (32, 128)),
-                          ("hymba-1.5b", (50, 16))):
-        case = ssd_case(torch, B=16, L=256, nh=nh, hp=64, N=N,
-                        dtype="bfloat16", seed=12, decay=0.05)
-        row(f"ssd_scan[{arch}]", f"B=16 L=256 nh={nh} hp=64 N={N} chunk=128 "
-            f"bf16, initial state",
-            lambda: ssd.ssd_scan(**case, chunk=128),
+    for label, spec in SSD_TIMED.items():
+        case, shape = ssd_timed_case(torch, spec)
+        row(label, shape, lambda: ssd.ssd_scan(**case, chunk=128),
             lambda: ref.ssd_scan_ref(**case, chunk=128), None,
             ssd_bound(case, 128, "bfloat16"), plain_iters=5)
         del case
@@ -1287,7 +1418,8 @@ def phase_reference(torch):
     inactive rows leave the recurrent state alone on both devices."""
     for arch, layout in (("granite-3-8b", "paged"), ("gemma2-9b", "contig"),
                          ("gemma2-9b", "paged"), ("mamba2-370m", "contig"),
-                         ("hymba-1.5b", "contig")):
+                         ("mamba2-370m", "paged"), ("hymba-1.5b", "contig"),
+                         ("hymba-1.5b", "paged")):
         cfg, gpu, cpu = _model_pair(arch, seed=7)
         g = torch.Generator().manual_seed(7)
         chunks = [torch.randint(1, cfg.vocab_size, (4, w), generator=g,
@@ -1995,6 +2127,9 @@ def main():
         fail(f"the repro_torch package is not beside this script: {e}")
     if sys.argv[1:2] == ["--compare-decode"]:
         compare_decode(torch, sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--compare-ssd"]:
+        compare_ssd_builds(torch, sys.argv[2:])
         return
     phase_build()
     worst = phase_check(torch)

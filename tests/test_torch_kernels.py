@@ -117,16 +117,28 @@ def jax_inputs(jx, arrays, dtype):
 _CHIP_SMOKE = None
 
 
-def tc_bound(plain, magnitude):
-    """``chip_smoke.tc_attention_bound``: the per-element bound a bf16
-    result of the tensor-core kernels is held to on the card."""
+def chip_smoke():
+    """``chip_smoke.py``, loaded once, for the bounds the card is held to."""
     global _CHIP_SMOKE
     if _CHIP_SMOKE is None:
         path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
         spec = importlib.util.spec_from_file_location("chip_smoke", path)
         _CHIP_SMOKE = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(_CHIP_SMOKE)
-    return _CHIP_SMOKE.tc_attention_bound(plain, magnitude)
+    return _CHIP_SMOKE
+
+
+def tc_bound(plain, magnitude):
+    """``chip_smoke.tc_attention_bound``: the per-element bound a bf16
+    result of the tensor-core kernels is held to on the card."""
+    return chip_smoke().tc_attention_bound(plain, magnitude)
+
+
+def ssd_bound(plain, magnitude):
+    """``chip_smoke.ssd_tc_bound``: the per-element bounds (y, state) the
+    bf16 ``ssd_scan`` is held to on the card; ``plain`` and
+    ``magnitude`` are (y, state) pairs of the plain version."""
+    return chip_smoke().ssd_tc_bound(*plain, *magnitude)
 
 
 def max_err(a, b) -> float:
@@ -1034,6 +1046,113 @@ def test_ssd_scan_plain_version_is_differentiable():
     assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads)
 
 
+def emulate_ssd_tc(x, dt, A, Bm, Cm, s0, *, chunk, fault=None):
+    """The bf16 ``ssd_scan`` kernel's arithmetic on the CPU, in float64
+    but for the roundings it makes: each chunk padded to its tile (64 or
+    128 positions) with positions of zero x, B, C and dt; cum summed in
+    order in float32; M = (C B^T) exp(cum_t - cum_s) dt_s on s <= t
+    rounded to bf16 once; the readout C S^T with S as bf16 halves hi =
+    bf16(S), lo = bf16(S - hi); the state S = exp(cum_Q) S + (x w)^T B
+    with x w as bf16 halves and S kept in full precision.
+
+    ``fault`` makes a wrong kernel: "drop" leaves the chunk's last
+    position out of its own intra sum, "decay" shifts the intra decay by
+    one position (cum_{t-1} for cum_t), "carry" drops the state at the
+    first chunk boundary, "plain" rounds the state update's operand x w
+    to bf16 once instead of splitting it. Returns (y, final state),
+    float32."""
+    f64 = torch.float64
+
+    def bf(t):
+        return t.to(torch.bfloat16).to(f64)
+
+    Bsz, L, nh, hp = x.shape
+    Q = chunk
+    QT = 64 if Q <= 64 else 128
+    S = s0.to(f64)
+    ys = []
+    t = torch.arange(QT)
+    causal = (t[None, :] <= t[:, None])[None, :, :, None]     # (1,t,s,1)
+    if fault == "drop":
+        causal = causal.clone()
+        causal[0, Q - 1, Q - 1] = False
+    for c in range(L // Q):
+        def tile(a):
+            part = a[:, c * Q:(c + 1) * Q].to(f64)
+            pad = torch.zeros((Bsz, QT - Q) + part.shape[2:], dtype=f64)
+            return torch.cat([part, pad], 1)
+
+        xc, dtc, Bc, Cc = tile(x), tile(dt), tile(Bm), tile(Cm)
+        step = (dtc.float() * A.float())                         # (B,QT,nh)
+        cum = torch.cumsum(step, dim=1).to(f64)
+        cum_t = cum - step.to(f64) if fault == "decay" else cum
+        diff = cum_t[:, :, None, :] - cum[:, None, :, :]         # (B,t,s,nh)
+        dec = torch.exp(torch.where(causal, diff, -torch.inf))
+        G = torch.einsum("btn,bsn->bts", Cc, Bc)
+        M = bf(G[..., None] * dec * dtc[:, None, :, :])
+        if fault == "carry" and c == 1:
+            S = torch.zeros_like(S)
+        hi = bf(S)
+        R = torch.einsum("btn,bhpn->bthp", Cc, hi + bf(S - hi))
+        y = (torch.exp(cum)[..., None] * R
+             + torch.einsum("btsh,bshp->bthp", M, xc))
+        ys.append(y[:, :Q])
+        w = dtc * torch.exp(cum[:, Q - 1:Q] - cum)               # (B,QT,nh)
+        v = xc * w[..., None]
+        vh = bf(v)
+        op = vh if fault == "plain" else vh + bf(v - vh)
+        U = torch.einsum("bshp,bsn->bhpn", op, Bc)
+        S = torch.exp(cum[:, Q - 1])[..., None, None] * S + U
+    return torch.cat(ys, 1).float(), S.float()
+
+
+def ssd_bound_case(B, L, nh, hp, N, chunk, decay, fault=None):
+    """Elements of the emulated kernel's (y, state) past ``ssd_bound``, on
+    the bf16 inputs of ``ssd_fixture``, from an initial state."""
+    x, dt, A, Bm, Cm, s0 = (torch.from_numpy(a) for a in ssd_fixture(
+        L + N + nh, B, L, nh, hp, N, decay))
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    got = emulate_ssd_tc(x, dt, A, Bm, Cm, s0, chunk=chunk, fault=fault)
+    want = tref.ssd_scan_ref(x, dt, A, Bm, Cm, s0, chunk=chunk)
+    mag = tref.ssd_scan_ref(x.abs(), dt, A, Bm.abs(), Cm.abs(), s0.abs(),
+                            chunk=chunk)
+    return [int(((g - w).abs() > b).sum())
+            for g, w, b in zip(got, want, ssd_bound(want, mag))]
+
+
+SSD_TC = [(*case, 0.1) for case in SSD] + [  # B, L, nh, hp, N, chunk, decay
+    (2, 256, 8, 64, 128, 128, 0.05),       # mamba2-370m's head and state
+    (2, 256, 8, 64, 16, 128, 0.05),        # hymba-1.5b's
+    (2, 200, 8, 64, 128, 100, 0.05),       # chunk 100, padded to the tile
+    (2, 200, 8, 64, 16, 100, 0.05),
+]
+
+
+@pytest.mark.parametrize("B,L,nh,hp,N,chunk,decay", SSD_TC)
+def test_ssd_tc_emulation_meets_the_bf16_bound(B, L, nh, hp, N, chunk,
+                                               decay):
+    """The tensor-core scan's arithmetic (M rounded to bf16, the state and
+    x w split into bf16 halves, chunks padded to the tile) against the
+    plain version: every element of y and of the state within
+    ``ssd_bound``."""
+    assert ssd_bound_case(B, L, nh, hp, N, chunk, decay) == [0, 0]
+
+
+@pytest.mark.parametrize("fault", ["drop", "decay", "carry", "plain"])
+@pytest.mark.parametrize("case", range(len(SSD)))
+def test_ssd_bound_catches_a_wrong_kernel(case, fault):
+    """At the sweep shapes, an emulation that leaves one position out of
+    the intra sum, shifts the decay by one position or drops the state
+    at a chunk boundary puts elements past the bound; one that rounds
+    the state update's operand to bf16 once, without its low half, puts
+    state elements past the state's bound."""
+    over_y, over_s = ssd_bound_case(*SSD_TC[case], fault=fault)
+    if fault == "plain":
+        assert over_s > 0
+    else:
+        assert over_y + over_s > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,L,nh,hp,N,chunk,decay", [
@@ -1043,13 +1162,15 @@ def test_ssd_scan_plain_version_is_differentiable():
     (2, 256, 32, 64, 128, 128, 0.05),      # mamba2-370m
     (2, 256, 50, 64, 16, 128, 0.05),       # hymba-1.5b
     (3, 24, 4, 32, 16, 24, 0.1),           # a 24-wide chunk (smoke)
+    (2, 64, 3, 33, 13, 32, 1.0),           # rows of odd byte length
     (2, 8, 4, 64, 128, 8, 0.1),            # the smallest bucket
 ])
 def test_cuda_ssd_scan_matches_plain(B, L, nh, hp, N, chunk, decay, dtype):
     """On a card: the kernel against its plain version on the same inputs,
-    from an initial state. Both compute in float32 from the same rounded
-    inputs, so bfloat16 is held like float32: 1e-5 of the output's scale
-    (sums over up to 128 terms taken in another order)."""
+    from an initial state. float32 runs on the CUDA cores: 1e-5 of the
+    output's scale (sums over up to 128 terms taken in another order).
+    bfloat16 runs on the tensor cores, which round M to bf16 and pass the
+    state and x w as bf16 halves: every element within ``ssd_bound``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels import ssd_scan as kern
@@ -1062,4 +1183,11 @@ def test_cuda_ssd_scan_matches_plain(B, L, nh, hp, N, chunk, decay, dtype):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert a.dtype == torch.float32 and a.shape == b.shape
-        assert rel_err(a.cpu(), b.cpu()) <= 1e-5
+    if dtype == "float32":
+        for a, b in zip(got, want):
+            assert rel_err(a.cpu(), b.cpu()) <= 1e-5
+    else:
+        mag = tref.ssd_scan_ref(x.abs(), dt, A, Bm.abs(), Cm.abs(), s0.abs(),
+                                chunk=chunk)
+        for a, b, bound in zip(got, want, ssd_bound(want, mag)):
+            assert torch.all((a - b).abs() <= bound)
