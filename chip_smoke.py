@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-decode CSRC_DIR [CSRC_DIR ...]
     python3 chip_smoke.py --compare-ssd CSRC_DIR [CSRC_DIR ...]
+    python3 chip_smoke.py --compare-probe CSRC_DIR [CSRC_DIR ...]
 
 The other forms only time the single-query decode kernels
-(``compare_decode``) or ``ssd_scan`` (``compare_ssd_builds``) built from
-each kernel source directory, in turns, for instance a parent commit's
+(``compare_decode``), ``ssd_scan`` (``compare_ssd_builds``) or
+``probe_update`` (``compare_probe_builds``) built from each kernel source
+directory, in turns, for instance a parent commit's
 ``src/repro_torch/kernels/csrc`` beside this one's.
 
 Phases, in order (any failure exits non-zero; nothing is passed over):
@@ -34,9 +36,15 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    one CTA; 256-page tables; a window edge inside a tile; inactive rows),
    each case logging the split its launch used; the multi-query kernel
    also with pages of 8 and in a prefill batch whose every row tile is
-   inactive but two sequences'; ``probe_update`` at
-   ``gemma2-9b`` width, 16 rows and 1, bfloat16 and float32 taps, with a
-   row whose posterior sums to 0 (the prior fallback); ``ssd_scan`` at
+   inactive but two sequences'; ``probe_update`` at ``gemma2-9b`` width
+   (1, 16, 17 and 64 rows, bfloat16 and float32 taps), at the d of
+   ``granite-3-8b`` (4096) and ``trail-llama`` (768), at d 200 and 201
+   (the tap read element by element), hid 48 and 50 (4-byte copies in
+   place of TMA), k 1 and 32, d 20000 (three slices a CTA) and hid 8192
+   (256 CTAs: the ticket in place of the grid barrier), each with a row
+   whose posterior sums to 0 (the prior fallback; not with one bin), two
+   calls on the same inputs bit-equal and calls in flight on two streams
+   equal to one call; ``ssd_scan`` at
    the shapes of ``tests/test_kernels.py``, at hp 33 and N 13 (rows of
    odd byte length), of ``mamba2-370m`` (16 x 256,
    32 heads of 64, state 128, chunk 128) and ``hymba-1.5b`` (50 heads,
@@ -61,7 +69,11 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    PyTorch library call computing the same function as a yardstick
    (``scaled_dot_product_attention`` with the same mask; none exists for
    ``probe_update``, whose w1 fits in L2, so it is timed with L2 flushed
-   before every call, nor for ``ssd_scan``); the single-query decode
+   before every call, at 16 rows and 1, beside the launch floor on its
+   grid, clusters and shared memory (an empty kernel, the ticket's memset
+   and the empty kernel, a cooperative launch meeting at a grid barrier)
+   and the card's count of clusters it holds at once against the plan's
+   table; nor for ``ssd_scan``); the single-query decode
    kernels and their library call as CUDA graphs of 30 calls (at the
    serves' shapes a call takes less device time than its wrapper takes
    on the host), also at the shapes the serves launch most: the gemma2-9b
@@ -90,7 +102,8 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    checking ``lengths == _kv_written`` after every step;
 8. drive ``launch.steps.make_serve_step`` on ``gemma2-9b`` for 8 steps
    after a prefill: each step's fused probe (``probe_update``) against
-   its plain version on the same tap, predicted lengths finite;
+   its plain version on the same tap, predicted lengths finite; then
+   profile one more step (its wall and device time);
 9. profile one ``gemma2-9b`` decode megastep and one prefill chunk;
 10. ``flash_attention`` (the training and profiling forwards): checked in
     phase 3 against its plain version, float32 and bfloat16, at the
@@ -169,7 +182,7 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}        # max |kernel - plain|
 ROUNDING = {"float32": None, "bfloat16": (2.0 ** -7, 1e-4)}   # (rel, abs)
 TC_KERNELS = ("flash_attention", "paged_decode_attention_multi")  # bf16: wgmma
 PORT_KERNELS = (r"flash_attention_(tc_)?kernel|paged_multi_(tc_)?kernel|"
-                r"decode_kernel|probe_(hidden|filter)_kernel|"
+                r"decode_kernel|probe_update_kernel|"
                 r"ssd_scan_(tc_)?kernel")
 PROBE_TOL = 1e-5
 PAGED_ARGS = ("q", "k_pages", "v_pages", "kpos_pages", "block_table", "q_pos")
@@ -873,6 +886,26 @@ def check_multi(paged, ref, args, cap):
     return got, want, mag
 
 
+PROBE_CASES = [  # label, B, d, hid, k, tap dtype, fallback
+    ("gemma2-9b", 16, 3584, 512, 10, "bfloat16", True),
+    ("gemma2-9b", 16, 3584, 512, 10, "float32", True),
+    ("gemma2-9b", 1, 3584, 512, 10, "bfloat16", True),
+    ("gemma2-9b", 1, 3584, 512, 10, "float32", True),
+    ("gemma2-9b", 17, 3584, 512, 10, "bfloat16", True),
+    ("gemma2-9b", 64, 3584, 512, 10, "float32", True),
+    ("granite-3-8b", 16, 4096, 512, 10, "bfloat16", True),
+    ("trail-llama", 16, 768, 512, 10, "bfloat16", True),
+    ("odd d", 16, 200, 512, 10, "float32", True),
+    ("odd d", 16, 201, 512, 10, "bfloat16", True),   # element-wise tap
+    ("hid 48", 16, 3584, 48, 10, "bfloat16", True),
+    ("hid 50", 5, 768, 50, 10, "float32", True),     # 4-byte copies
+    ("k 1", 16, 3584, 512, 1, "bfloat16", False),    # p = 1: no fallback
+    ("k 32", 16, 3584, 512, 32, "float32", True),
+    ("d 20000", 17, 20000, 64, 10, "bfloat16", True),  # 3 slices a CTA
+    ("hid 8192", 6, 1600, 8192, 10, "float32", True),  # 256 CTAs: ticket
+]
+
+
 def phase_check(torch):
     """Every kernel against its plain version on the same inputs; returns
     the worst error of each at the shapes its row in the JSON line times."""
@@ -956,27 +989,56 @@ def phase_check(torch):
                 fail("decode_attention: no ring row wrapped")
             if dtype == "bfloat16" and arch.startswith("gemma2"):
                 worst["decode_attention"] = max(worst["decode_attention"], err)
-    for B, tap_dtype in ((16, "bfloat16"), (16, "float32"), (1, "bfloat16"),
-                         (1, "float32")):
+    for label, B, d, hid, k, tap_dtype, fallback in PROBE_CASES:
         seed += 1
-        case = probe_case(torch, B=B, d=3584, hid=512, k=10,
-                          tap_dtype=tap_dtype, seed=seed, fallback=True)
+        case = probe_case(torch, B=B, d=d, hid=hid, k=k, tap_dtype=tap_dtype,
+                          seed=seed, fallback=fallback)
         got = probe.probe_update(*case.values())
         want = ref.probe_update_ref(*case.values())
         torch.cuda.synchronize()
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
         prior = case["q_prev"][0] @ case["T"].T
         fell_back = bool(torch.allclose(got[0][0], prior, atol=PROBE_TOL))
-        log(f"[check] {'probe_update':30s} gemma2-9b B={B:2d} tap "
-            f"{tap_dtype:8s}: max|kernel-plain| q_new {errs[0]:.3e}, p "
+        pl = probe.plan(B, d, hid, k)
+        log(f"[check] {'probe_update':30s} {label:12s} B={B:2d} d={d:5d} "
+            f"hid={hid:3d} k={k:2d} tap {tap_dtype:8s} (clusters of "
+            f"{pl.cluster} x {pl.col_blocks}, {pl.npass} x {pl.dslice} rows"
+            f" a CTA): max|kernel-plain| q_new {errs[0]:.3e}, p "
             f"{errs[1]:.3e} (tol {PROBE_TOL:.0e}); row 0 fell back to its "
             f"prior: {fell_back}")
-        if max(errs) > PROBE_TOL or not fell_back:
+        if max(errs) > PROBE_TOL or (fallback and not fell_back):
             fail(f"probe_update disagrees with its plain version: {errs}, "
                  f"fallback {fell_back}")
-        if B == 16 and tap_dtype == "bfloat16":
+        if (label, B, tap_dtype) == ("gemma2-9b", 16, "bfloat16"):
             worst["probe_update"] = max(errs)
+    check_probe_repeats(torch, probe)
     return worst
+
+
+def check_probe_repeats(torch, probe):
+    """Two calls on the same inputs agree bit for bit, and calls in flight
+    on two streams at once (four on each, alternating) equal one call."""
+    args = list(probe_case(torch, B=16, d=3584, hid=512, k=10,
+                           tap_dtype="bfloat16", seed=77).values())
+    one = probe.probe_update(*args)
+    two = probe.probe_update(*args)
+    main = torch.cuda.current_stream()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = []
+    for s in streams:
+        s.wait_stream(main)
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(probe.probe_update(*args))
+    torch.cuda.synchronize()
+    same = [all(torch.equal(a, b) for a, b in zip(one, out))
+            for out in (two, *outs)]
+    log(f"[check] {'probe_update':30s} gemma2-9b B=16 bf16 tap: a second "
+        f"call bit-equal: {same[0]}; 8 calls on two streams equal to one "
+        f"call: {sum(same[1:])}/8")
+    if not all(same):
+        fail("probe_update: repeated or concurrent calls disagree")
 
 
 def decode_split(kernel, dtype, **shape):
@@ -1168,9 +1230,27 @@ def decode_timed_case(torch, kind, spec, with_split=True):
 
 def build_entries(dirs, sig):
     """Build ``<name>.cu`` for each name of ``sig`` from each kernel source
+    directory (``build_libraries``) and return, per directory, each
+    name's ``<name>_launch`` entry with the C argument types ``sig``
+    gives."""
+    return [{name: c_entry(libs[name], f"{name}_launch", argtypes)
+             for name, argtypes in sig.items()}
+            for libs in build_libraries(dirs, sig)]
+
+
+def c_entry(lib, entry, argtypes):
+    """``entry`` of a ctypes library, declared with ``argtypes`` and an int
+    result (a CUDA error code)."""
+    import ctypes
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def build_libraries(dirs, names):
+    """Build ``<name>.cu`` for each of ``names`` from each kernel source
     directory (one ``nvcc`` each, all at once, into ``build/compare/<i>``)
-    and return, per directory, each name's ``<name>_launch`` entry with
-    the C argument types ``sig`` gives."""
+    and return, per directory, each name's loaded library."""
     import ctypes
     from repro_torch.kernels import build
     outs = [build.BUILD_DIR.parent / "compare" / str(i)
@@ -1178,7 +1258,7 @@ def build_entries(dirs, sig):
     jobs = []
     for d, out in zip(dirs, outs):
         out.mkdir(parents=True, exist_ok=True)
-        for name in sig:
+        for name in names:
             cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o",
                    str(out / f"{name}.so"), str(Path(d) / f"{name}.cu")]
             jobs.append((cmd, subprocess.Popen(
@@ -1190,16 +1270,8 @@ def build_entries(dirs, sig):
             fail(f"{' '.join(cmd)} failed:\n{report}")
         for kernel, usage in ptxas_usage(report):
             log(f"[build] {cmd[-1]}: {kernel}: {usage}")
-    entries = []
-    for out in outs:
-        entry = {}
-        for name, argtypes in sig.items():
-            fn = getattr(ctypes.CDLL(str(out / f"{name}.so")),
-                         f"{name}_launch")
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            entry[name] = fn
-        entries.append(entry)
-    return entries
+    return [{name: ctypes.CDLL(str(out / f"{name}.so")) for name in names}
+            for out in outs]
 
 
 def compare_decode(torch, dirs):
@@ -1313,6 +1385,104 @@ def compare_ssd_builds(torch, dirs):
         del case, y, s_fin, want, bounds
 
 
+PROBE_TIMED = {"probe_update[gemma2-9b]": 16,  # label: rows (d 3584)
+               "probe_update[gemma2-9b,B=1]": 1}
+
+
+def probe_floor(torch, probe):
+    """The floor under a timed ``probe_update`` call (gemma2-9b width, 16
+    rows), timed as the calls are (L2 flushed) on its grid, clusters and
+    shared memory: an empty kernel, the ticket's memset and the empty
+    kernel (what the probe's launch pays), and a cooperative launch whose
+    CTAs meet at a grid barrier (the other way to the cross-cluster sum).
+    Also checks the plan's table of clusters the card holds at once."""
+    pl = probe.plan(16, 3584, 512, 10)
+    ticket = torch.zeros(4, dtype=torch.int32, device="cuda")
+    ms = [time_cold_ms(torch, lambda: probe.floor_launch(pl, mode, ticket))
+          for mode in (0, 1, 2)]
+    log(f"[time] {'probe_update launch floor':40s} {pl.cluster} x "
+        f"{pl.col_blocks} CTAs in clusters of {pl.cluster}, {pl.smem} B of "
+        f"shared memory each, L2 flushed: empty kernel {ms[0]:.4f} ms; "
+        f"ticket memset + empty kernel {ms[1]:.4f} ms; cooperative launch "
+        f"+ grid barrier {ms[2]:.4f} ms")
+    card = {c: probe.active_clusters(c) for c in probe.ACTIVE_CLUSTERS}
+    log(f"[time] clusters the card holds at once at one CTA an SM: {card} "
+        f"(the plan's table: {card == probe.ACTIVE_CLUSTERS})")
+    return ms
+
+
+def parent_split_d(B: int, d: int, hid: int) -> tuple[int, int]:
+    """(nsplit, dslice) of the two-kernel ``probe.cu`` (commit 6bb40c9 and
+    before), a copy of its wrapper's ``split_d``: how its first pass cut
+    d, which sizes its scratch of nsplit x B x hid floats."""
+    tiles = -(-hid // 32) * -(-B // 16)
+    nsplit = max(-(-d // 256), min(-(-d // 64), -(-2 * 132 // tiles)))
+    dslice = -(-d // nsplit)
+    return -(-d // dslice), dslice
+
+
+def compare_probe_builds(torch, dirs):
+    """``--compare-probe DIR ...``: build ``probe.cu`` from each kernel
+    source directory DIR (this checkout's, or the parent commit's from
+    ``git archive``: a source with ``probe_hidden_kernel`` is the
+    two-kernel version, whose C entry takes ``parent_split_d``'s cut and
+    its scratch) and time it at the PROBE_TIMED shapes in turns (first to
+    last, then last to first) with L2 flushed before each call, each
+    build first held to PROBE_TOL against the plain version; then the
+    launch floor."""
+    import ctypes
+    from repro_torch.kernels import probe, ref
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = build_libraries(dirs, ["probe"])
+    d, hid, k = 3584, 512, 10
+    for label, B in PROBE_TIMED.items():
+        case = probe_case(torch, B=B, d=d, hid=hid, k=k,
+                          tap_dtype="bfloat16", seed=9)
+        args = list(case.values())
+        want = ref.probe_update_ref(*args)
+        fns = []
+        for src, lib in zip(dirs, libs):
+            q_new = torch.empty((B, k), dtype=torch.float32, device="cuda")
+            p = torch.empty_like(q_new)
+            if "probe_hidden_kernel" in (Path(src) / "probe.cu").read_text():
+                cut = parent_split_d(B, d, hid)
+                scratch = torch.empty(cut[0] * B * hid, device="cuda")
+            else:
+                pl = probe.plan(B, d, hid, k)
+                cut = (pl.row_tile, pl.cluster, pl.dslice, pl.npass,
+                       int(pl.grid_sync))
+                scratch = torch.empty(pl.scratch, device="cuda")
+            fn = c_entry(lib["probe"], "probe_update_launch",
+                         [ptr] * 10 + [i32] * (5 + len(cut)) + [ptr])
+
+            def launch(fn=fn, q_new=q_new, p=p, scratch=scratch, cut=cut,
+                       src=src):
+                err = fn(*(a.data_ptr() for a in args), q_new.data_ptr(),
+                         p.data_ptr(), scratch.data_ptr(), 1, B, d, hid, k,
+                         *cut, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    fail(f"{label} ({src}): CUDA error {err}")
+                return q_new, p
+            got = launch()
+            torch.cuda.synchronize()
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            log(f"[check] {label} ({src}): max|kernel-plain| q_new "
+                f"{errs[0]:.3e}, p {errs[1]:.3e} (tol {PROBE_TOL:.0e})")
+            if max(errs) > PROBE_TOL:
+                fail(f"{label} ({src}) disagrees with its plain version")
+            fns.append(launch)
+        times = [[] for _ in fns]
+        for i in [*range(len(fns)), *reversed(range(len(fns)))]:
+            times[i].append(time_cold_ms(torch, fns[i]))
+        b_ms, by = probe_bound(case)
+        log(f"[compare] {label} B={B} d={d} hid={hid} k={k} bf16 tap, L2 "
+            "flushed: " + "; ".join(
+                f"{src}: {min(t):.4f} ms ({100 * b_ms / min(t):.1f}% of "
+                f"bound)" for src, t in zip(dirs, times))
+            + f"; bound {b_ms:.4f} ms ({by})")
+    probe_floor(torch, probe)
+
+
 def phase_time(torch):
     """Time each kernel at its path's shapes (bfloat16) beside its plain
     version, its bound and its library yardstick."""
@@ -1378,13 +1548,15 @@ def phase_time(torch):
             plain_iters=3 if S > 1024 else 10)
         del q, k, v
 
-    case = probe_case(torch, B=16, d=3584, hid=512, k=10,
-                      tap_dtype="bfloat16", seed=9)
-    args = list(case.values())
-    row("probe_update[gemma2-9b]", "B=16 d=3584 hid=512 k=10 bf16 tap, "
-        "L2 flushed", lambda: probe.probe_update(*args),
-        lambda: ref.probe_update_ref(*args), None, probe_bound(case),
-        timer=time_cold_ms)
+    for label, B in PROBE_TIMED.items():
+        case = probe_case(torch, B=B, d=3584, hid=512, k=10,
+                          tap_dtype="bfloat16", seed=9)
+        args = list(case.values())
+        row(label, f"B={B} d=3584 hid=512 k=10 bf16 tap, L2 flushed",
+            lambda: probe.probe_update(*args),
+            lambda: ref.probe_update_ref(*args), None, probe_bound(case),
+            timer=time_cold_ms)
+    probe_floor(torch, probe)
 
     # ssd_scan: one prefill chunk of a full slot batch from a carried
     # state, and one tap-harvest forward (8 x 512) from zeros
@@ -2041,6 +2213,8 @@ def phase_serve_step(torch, cfg, model):
     if (launches["probe_update"] != 8
             or launches["decode_attention"] != 8 * cfg.num_layers):
         fail(f"serve_step launches {launches}")
+    _profile(torch, cfg.name, f"fused serve step, B={B}",
+             lambda: serve_step(cache, tok, q))
     return launches, cache
 
 
@@ -2130,6 +2304,9 @@ def main():
         return
     if sys.argv[1:2] == ["--compare-ssd"]:
         compare_ssd_builds(torch, sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--compare-probe"]:
+        compare_probe_builds(torch, sys.argv[2:])
         return
     phase_build()
     worst = phase_check(torch)

@@ -2,23 +2,37 @@
 
 The kernel (``csrc/probe.cu``) replaces the reference package's Pallas TPU
 kernel ``probe_update``: the probe MLP, its softmax and one Bayes-filter
-step in one call. ``probe_update`` checks its tensors, allocates the
-outputs and the split-d scratch with ``torch.empty``, launches on the
-current CUDA stream, raises if the launch was refused, and counts the
-launch in ``build.launches``. Shapes and semantics are those of
-``ref.probe_update_ref``.
+step in one launch. ``plan`` sizes the launch; ``probe_update`` checks its
+tensors, allocates the outputs and the call's scratch in one
+``torch.empty``, launches on the current CUDA stream, raises if the
+launch was refused, and counts the launch in ``build.launches``. Shapes
+and semantics are those of ``ref.probe_update_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
-_SMS = 132            # H100 SXM streaming multiprocessors
-_MAX_DSLICE = 256     # tap rows of a d slice held in shared memory
+SMS = 132                 # H100 SXM streaming multiprocessors
+#: clusters of n CTAs an H100 SXM holds at once at one CTA an SM
+#: (cudaOccupancyMaxActiveClusters; chip_smoke.py checks it on the card)
+ACTIVE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+MAX_SMEM = 232448         # shared memory a CTA may take (227 KB)
+MAX_CLUSTER = 8           # the portable cluster size
+COLS = 32                 # hid columns of a cluster
+STAGE_ROWS = 128          # w1 rows of a pipeline stage (one TMA box)
+MIN_ROWS = 32             # the fewest d rows a CTA of a cluster takes
+WARPS = 8                 # warps of a CTA
+MAX_BINS = 32             # the most bins (k) a call takes
+ONE_PER_SM = 120 * 1024   # shared memory that keeps a CTA alone on its SM
+TICKET = 4                # scratch floats before the partial logits
+ALIGN = 8                 # slice rows come in 16-byte tap chunks
 _lib = None
 
 
@@ -27,19 +41,72 @@ def _library():
     if _lib is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         _lib = build.bind("probe", {
-            "probe_update_launch": [ptr] * 10 + [i32] * 7 + [ptr]})
+            "probe_update_launch": [ptr] * 10 + [i32] * 10 + [ptr],
+            "probe_floor_launch": [i32] * 4 + [ptr, ptr],
+            "probe_active_clusters": [i32, i32, ptr]})
     return _lib
 
 
-def split_d(B: int, d: int, hid: int) -> tuple[int, int]:
-    """(nsplit, dslice): how the first pass cuts d so that its grid of
-    (hid/32) x (B/16) x nsplit blocks covers two blocks per SM, with a d
-    slice of 64 to 256 rows."""
-    tiles = -(-hid // 32) * -(-B // 16)
-    nsplit = max(-(-d // _MAX_DSLICE),
-                 min(-(-d // 64), -(-2 * _SMS // tiles)))
-    dslice = -(-d // nsplit)
-    return -(-d // dslice), dslice
+class Plan(NamedTuple):
+    """How one call is cut (``plan``): row tiles of ``row_tile`` tap rows;
+    ``col_blocks`` clusters of ``cluster`` CTAs, one per block of 32 hid
+    columns; CTA ``q`` of a cluster takes the d slices ``p * cluster +
+    q`` for ``p < npass``, slice ``s`` being rows ``[s * dslice, (s + 1)
+    * dslice)`` cut at d; ``smem`` bytes of shared memory a CTA;
+    ``scratch`` floats (the ticket, then the partial logits);
+    ``grid_sync``: the grid fits the card at once, so the launch is
+    cooperative and the CTAs meet at a grid barrier, else at a ticket."""
+    row_tile: int
+    cluster: int
+    dslice: int
+    npass: int
+    col_blocks: int
+    smem: int
+    scratch: int
+    grid_sync: bool
+
+
+def smem_bytes(row_tile: int, dslice: int) -> int:
+    """A CTA's shared memory (``probe.cu`` ``smem_bytes``): per stage of 128
+    rows the w1 rows, the tap rows and an mbarrier; the warps' partial
+    sums, the partial h received from the cluster, the cluster's rows of
+    w2 and b1, T and b2, and a flag; at least ONE_PER_SM."""
+    stages = -(-dslice // STAGE_ROWS)
+    n = (stages * (STAGE_ROWS * COLS * 4 + STAGE_ROWS * row_tile * 4 + 8)
+         + row_tile * COLS * 4 * (WARPS + MAX_CLUSTER)
+         + COLS * (MAX_BINS + 1) * 4 + MAX_BINS * (MAX_BINS + 1) * 4 + 16)
+    return max(n, ONE_PER_SM)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, d: int, hid: int, k: int) -> Plan:
+    """Cut a call so that one wave of CTAs, one an SM, streams w1 once:
+    the largest cluster (up to 8 CTAs over d, at least 32 rows a slice)
+    whose hid / 32 column blocks the card holds at once, each CTA's tile
+    resident in its shared memory; where d is too long for that, each CTA
+    takes npass slices in turn. Slices are whole 8-row chunks where d
+    allows, so the tap loads 16 bytes at a time."""
+    row_tile = 16 if B > 4 else 4
+    col_blocks = -(-hid // COLS)
+    cluster = max([c for c, n in ACTIVE_CLUSTERS.items() if n >= col_blocks]
+                  + [1])
+    cluster = max(1, min(cluster, MAX_CLUSTER, -(-d // MIN_ROWS)))
+    max_rows = STAGE_ROWS
+    while smem_bytes(row_tile, max_rows + STAGE_ROWS) <= MAX_SMEM:
+        max_rows += STAGE_ROWS
+    npass = -(-d // (cluster * max_rows))
+    dslice = -(-d // (cluster * npass))
+    if d % ALIGN == 0:
+        dslice = -(-dslice // ALIGN) * ALIGN
+    if npass == 1:
+        cluster = -(-d // dslice)           # no empty slice
+    return Plan(row_tile, cluster, dslice, npass, col_blocks,
+                smem_bytes(row_tile, dslice), TICKET + col_blocks * B * k,
+                ACTIVE_CLUSTERS[cluster] >= col_blocks)
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
 def probe_update(tap, w1, b1, w2, b2, q_prev, T):
@@ -65,21 +132,45 @@ def probe_update(tap, w1, b1, w2, b2, q_prev, T):
                          "b2 %s, q_prev %s, T %s" % tuple(
                              tuple(t.shape) for t in (tap, w1, b1, w2, b2,
                                                       q_prev, T)))
-    if not (B >= 1 and 1 <= k <= 32 and 1 <= hid <= 8192):
-        raise ValueError(f"unsupported sizes B={B}, hid={hid}, k={k} "
-                         "(B >= 1, hid <= 8192, k <= 32)")
-    nsplit, dslice = split_d(B, d, hid)
-    dev = tap.device
-    q_new = torch.empty((B, k), dtype=torch.float32, device=dev)
-    p = torch.empty((B, k), dtype=torch.float32, device=dev)
-    partial = torch.empty((nsplit, B, hid), dtype=torch.float32, device=dev)
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.probe_update_launch(
+    if not (B >= 1 and d >= 1 and 1 <= k <= 32 and 1 <= hid <= 8192):
+        raise ValueError(f"unsupported sizes B={B}, d={d}, hid={hid}, k={k} "
+                         "(B, d >= 1, hid <= 8192, k <= 32)")
+    pl = plan(B, d, hid, k)
+    # one buffer: q_new, p and the scratch, each on a 16-byte boundary
+    n = _round4(B * k)
+    buf = torch.empty(2 * n + pl.scratch, dtype=torch.float32,
+                      device=tap.device)
+    q_new, p = buf[:B * k].view(B, k), buf[n:n + B * k].view(B, k)
+    stream = torch.cuda.current_stream(tap.device).cuda_stream
+    err = _library().probe_update_launch(
         tap.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), q_prev.data_ptr(), T.data_ptr(), q_new.data_ptr(),
-        p.data_ptr(), partial.data_ptr(), build.DTYPE_CODE[tap.dtype], B, d,
-        hid, k, nsplit, dslice, stream)
+        p.data_ptr(), buf[2 * n:].data_ptr(), build.DTYPE_CODE[tap.dtype], B,
+        d, hid, k, pl.row_tile, pl.cluster, pl.dslice, pl.npass,
+        int(pl.grid_sync), stream)
     build.raise_on(err, "probe_update")
     build.launches["probe_update"] += 1
     return q_new, p
+
+
+def floor_launch(pl: Plan, mode: int, ticket=None):
+    """The launch floor on ``pl``'s grid and clusters with its shared
+    memory, which the probe's time is read against: ``mode`` 0 an empty
+    kernel, 1 the memset of ``ticket`` (a CUDA tensor) and the empty
+    kernel, 2 a cooperative launch whose CTAs meet at a grid barrier. Not
+    counted as a probe launch."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _library().probe_floor_launch(
+        mode, pl.cluster, pl.col_blocks, pl.smem,
+        None if ticket is None else ticket.data_ptr(), stream)
+    build.raise_on(err, "probe_floor")
+
+
+def active_clusters(cluster: int, smem: int = ONE_PER_SM) -> int:
+    """Clusters of ``cluster`` CTAs with ``smem`` bytes of shared memory
+    each that the current card holds at once (``ACTIVE_CLUSTERS`` is the
+    H100 SXM's at ONE_PER_SM)."""
+    out = ctypes.c_int(0)
+    build.raise_on(_library().probe_active_clusters(
+        cluster, smem, ctypes.byref(out)), "probe_active_clusters")
+    return out.value

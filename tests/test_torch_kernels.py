@@ -398,6 +398,169 @@ def test_probe_update(jx, B, d, hid, k, tap_dtype, fallback):
         assert float(p[1:].min()) > 0.0         # the other rows are spread
 
 
+# The probe kernel's decomposition (csrc/probe.cu), emulated on the CPU.
+
+PROBE_SPLIT = [  # B, d, hid, k, tap dtype, fallback
+    (4, 64, 32, 5, "float32", False),       # test_probe_update's shapes
+    (3, 128, 32, 5, "bfloat16", False),
+    (16, 96, 48, 10, "float32", True),
+    (2, 200, 64, 10, "bfloat16", True),
+    (16, 3584, 512, 10, "bfloat16", True),  # gemma2-9b width
+    (1, 3584, 512, 10, "float32", False),   # B 1: row tiles of 4
+    (17, 768, 512, 10, "bfloat16", True),   # B 17: a second row tile
+    (5, 256, 64, 1, "float32", False),      # k 1
+    (6, 256, 64, 32, "float32", True),      # k 32
+    (8, 384, 48, 10, "float32", False),     # hid 48: a tail column block
+    (8, 200, 96, 10, "bfloat16", False),    # d 200: a ragged last slice
+]
+PROBE_FAULTS = ("relu", "slice", "bias", "tail")
+_PROBE_SPLIT_CACHE = {}
+
+
+def emulate_probe_split(tap, w1, b1, w2, b2, q_prev, T, plan, fault=None):
+    """The probe kernel's arithmetic in float32 torch, cut as ``plan`` cuts
+    it: for each block of 32 hid columns, each CTA's partial h over its d
+    slices, the cluster's CTAs summed in rank order; then b1 and the ReLU;
+    the block's partial logits; the blocks summed in order, b2, the
+    softmax and the Bayes filter. ``fault`` makes it a wrong kernel:
+    "relu" (the ReLU on each slice's partial sum), "slice" (the last d
+    slice dropped), "bias" (b1 added once a slice), "tail" (the last
+    column block dropped). Returns (q_new, p, logits)."""
+    from repro_torch.kernels.probe import COLS
+    tap = tap.float()
+    B, d = tap.shape
+    hid, k = w2.shape
+    last = (d - 1) // plan.dslice               # the slice holding row d-1
+    logits = torch.zeros(B, k)
+    for cb in range(plan.col_blocks):
+        if fault == "tail" and cb == plan.col_blocks - 1:
+            break
+        cols = slice(COLS * cb, min(COLS * (cb + 1), hid))
+        h = torch.zeros(B, cols.stop - cols.start)
+        for rank in range(plan.cluster):
+            part = torch.zeros_like(h)
+            for p in range(plan.npass):
+                s = p * plan.cluster + rank
+                lo, hi = s * plan.dslice, min((s + 1) * plan.dslice, d)
+                if lo >= hi or (fault == "slice" and s == last):
+                    continue
+                x = tap[:, lo:hi] @ w1[lo:hi, cols]
+                if fault == "relu":
+                    x = torch.relu(x)
+                if fault == "bias":
+                    x = x + b1[cols]
+                part = part + x
+            h = h + part
+        h = torch.relu(h if fault == "bias" else h + b1[cols])
+        logits = logits + h @ w2[cols]
+    logits = logits + b2
+    p = torch.softmax(logits, dim=-1)
+    prior = q_prev @ T.T
+    post = prior * p
+    z = post.sum(-1, keepdim=True)
+    q_new = torch.where(z > 0, post / z.clamp_min(1e-30), prior)
+    return q_new, p, logits
+
+
+def probe_split_case(jx, i):
+    """Inputs of PROBE_SPLIT[i] (torch), the JAX Pallas kernel's (q_new,
+    p) in interpret mode and the plain logits; made once per case."""
+    if i not in _PROBE_SPLIT_CACHE:
+        B, d, hid, k, tap_dtype, fallback = PROBE_SPLIT[i]
+        arrays = probe_fixture(B * d + hid + k, B, d, hid, k, fallback)
+        th = [torch.from_numpy(a) for a in arrays]
+        th[0] = th[0].to(getattr(torch, tap_dtype))
+        ja = [jx.jnp.asarray(a) for a in arrays]
+        ja[0] = ja[0].astype(tap_dtype)
+        want = [torch.from_numpy(np.array(x))
+                for x in jx.pallas_probe(*ja, interpret=True)]
+        logits = torch.relu(th[0].float() @ th[1] + th[2]) @ th[3] + th[4]
+        _PROBE_SPLIT_CACHE[i] = th, want, logits
+    return _PROBE_SPLIT_CACHE[i]
+
+
+def probe_split_errors(got, want, logits):
+    """Max |emulation - JAX| of q_new and p, and the logits' largest error
+    relative to each row's scale (a fallback row's logits run to 1e4)."""
+    scale = logits.abs().amax(-1, keepdim=True).clamp_min(1.0)
+    return (max_err(got[0], want[0]), max_err(got[1], want[1]),
+            float(((got[2] - logits).abs() / scale).max()))
+
+
+@pytest.mark.parametrize("case", range(len(PROBE_SPLIT)))
+def test_probe_split_emulation(jx, case):
+    """The kernel's decomposition (slices over a cluster, ReLU after the
+    whole d sum, column blocks summed in order) matches the JAX Pallas
+    kernel within 1e-5."""
+    from repro_torch.kernels.probe import plan
+    th, want, logits = probe_split_case(jx, case)
+    B, d = th[0].shape
+    hid, k = th[3].shape
+    pl = plan(B, d, hid, k)
+    got = emulate_probe_split(*th, pl)
+    err_q, err_p, err_logits = probe_split_errors(got, want, logits)
+    assert err_q < 1e-5 and err_p < 1e-5 and err_logits < 1e-5
+    assert pl.cluster * pl.npass > 1        # the d sum is split
+
+
+@pytest.mark.parametrize("fault", PROBE_FAULTS)
+@pytest.mark.parametrize("case", range(len(PROBE_SPLIT)))
+def test_probe_split_fault_is_caught(jx, case, fault):
+    """Each wrong decomposition breaks 1e-5 at every sweep case: in q_new
+    or p, or (where k = 1 makes both independent of the logits) in the
+    logits."""
+    from repro_torch.kernels.probe import plan
+    th, want, logits = probe_split_case(jx, case)
+    B, d = th[0].shape
+    hid, k = th[3].shape
+    bad = emulate_probe_split(*th, plan(B, d, hid, k), fault=fault)
+    assert max(probe_split_errors(bad, want, logits)) > 1e-5
+
+
+PLAN_SHAPES = [  # B, d, hid, k
+    (16, 3584, 512, 10), (1, 3584, 512, 10), (17, 3584, 512, 10),
+    (64, 4096, 512, 10), (16, 768, 512, 10), (16, 200, 512, 10),
+    (5, 7168, 48, 32), (3, 1, 50, 1), (2, 20000, 64, 10),
+    (300, 40000, 8192, 32), (16, 1600, 8192, 10), (4, 33, 1, 2),
+]
+
+
+@pytest.mark.parametrize("B,d,hid,k", PLAN_SHAPES)
+def test_probe_plan(B, d, hid, k):
+    """The plan covers every d row and every hid column exactly once,
+    fits a CTA's shared memory, keeps to portable clusters, sizes the
+    scratch for what the kernel writes, keeps to one wave of clusters the
+    card holds at once, and cuts gemma2-9b's call into 16 clusters of 6
+    CTAs."""
+    from repro_torch.kernels import probe
+    pl = probe.plan(B, d, hid, k)
+    rows = np.zeros(d, np.int64)
+    for s in range(pl.cluster * pl.npass):
+        rows[s * pl.dslice:(s + 1) * pl.dslice] += 1
+    assert (rows == 1).all()
+    assert pl.cluster * pl.npass * pl.dslice - d < pl.dslice
+    cols = np.zeros(hid, np.int64)
+    for cb in range(pl.col_blocks):
+        cols[probe.COLS * cb:probe.COLS * (cb + 1)] += 1
+    assert (cols == 1).all()
+    assert pl.smem == probe.smem_bytes(pl.row_tile, pl.dslice)
+    assert pl.smem <= probe.MAX_SMEM
+    assert 1 <= pl.cluster <= probe.MAX_CLUSTER
+    assert pl.row_tile == (4 if B <= 4 else 16)
+    assert pl.scratch >= probe.TICKET + pl.col_blocks * B * k
+    assert pl.smem >= probe.ONE_PER_SM  # one CTA an SM
+    if pl.col_blocks <= probe.SMS:      # one wave: a grid barrier
+        assert probe.ACTIVE_CLUSTERS[pl.cluster] >= pl.col_blocks
+    assert pl.grid_sync == (pl.col_blocks <= probe.SMS)
+    if d % probe.ALIGN == 0:            # 16-byte tap loads
+        assert pl.dslice % probe.ALIGN == 0
+    if d > 8 * 1568:                    # too long for one pass of 8 CTAs
+        assert pl.npass > 1
+    if (B, d, hid) == (16, 3584, 512):  # gemma2-9b: 16 clusters of 6
+        assert (pl.cluster, pl.dslice, pl.npass, pl.col_blocks) == \
+            (6, 600, 1, 16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("H,KH,hd,M,win", [(16, 8, 256, 300, 0),
@@ -419,21 +582,37 @@ def test_cuda_decode_attention_matches_plain(H, KH, hd, M, win, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,tap_dtype,fallback", [(16, "bfloat16", False),
-                                                  (1, "float32", True)])
-def test_cuda_probe_update_matches_plain(B, tap_dtype, fallback):
+@pytest.mark.parametrize("B,d,hid,k,tap_dtype,fallback", [
+    (16, 3584, 512, 10, "bfloat16", False),
+    (1, 3584, 512, 10, "float32", True),
+    (17, 3584, 512, 10, "bfloat16", True),      # a second row tile
+    (64, 4096, 512, 10, "float32", False),
+    (16, 200, 512, 10, "bfloat16", True),       # a ragged last d slice
+    (16, 201, 512, 10, "bfloat16", False),      # tap loads element-wise
+    (16, 3584, 48, 10, "float32", True),        # a tail column block
+    (5, 768, 50, 10, "bfloat16", False),        # hid % 4 != 0: 4-byte copies
+    (16, 3584, 512, 1, "float32", False),
+    (16, 3584, 512, 32, "bfloat16", True),
+    (17, 20000, 64, 10, "float32", False),      # npass > 1
+    (6, 1600, 8192, 10, "bfloat16", True),      # 256 CTAs: the ticket
+    (3, 64, 16, 5, "float32", False),           # w1 smaller than a box
+])
+def test_cuda_probe_update_matches_plain(B, d, hid, k, tap_dtype, fallback):
     """On a card: the probe kernel against its plain version (gemma2-9b
-    width: d=3584, hidden 512, 10 bins)."""
+    width: d=3584, hidden 512, 10 bins, and the plan's edges), and two
+    calls on the same inputs bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels import probe as kern
     th = [torch.from_numpy(a).cuda()
-          for a in probe_fixture(B, B, 3584, 512, 10, fallback)]
+          for a in probe_fixture(B + d, B, d, hid, k, fallback)]
     th[0] = th[0].to(getattr(torch, tap_dtype))
     got, want = kern.probe_update(*th), tref.probe_update_ref(*th)
+    again = kern.probe_update(*th)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
+    for a, b, c in zip(got, want, again):
         assert float((a - b).abs().max()) <= 1e-5
+        assert torch.equal(a, c)
 
 
 def flash_fixture(seed, B, S, H, KH, hd):
