@@ -902,7 +902,7 @@ PROBE_CASES = [  # label, B, d, hid, k, tap dtype, fallback
     ("k 1", 16, 3584, 512, 1, "bfloat16", False),    # p = 1: no fallback
     ("k 32", 16, 3584, 512, 32, "float32", True),
     ("d 20000", 17, 20000, 64, 10, "bfloat16", True),  # 3 slices a CTA
-    ("hid 8192", 6, 1600, 8192, 10, "float32", True),  # 256 CTAs: ticket
+    ("hid 8192", 6, 1600, 8192, 10, "float32", True),  # 256 CTAs, 2 waves
 ]
 
 
@@ -999,7 +999,7 @@ def phase_check(torch):
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
         prior = case["q_prev"][0] @ case["T"].T
         fell_back = bool(torch.allclose(got[0][0], prior, atol=PROBE_TOL))
-        pl = probe.plan(B, d, hid, k)
+        pl = probe.plan(B, d, hid, k, probe.active_clusters(0))
         log(f"[check] {'probe_update':30s} {label:12s} B={B:2d} d={d:5d} "
             f"hid={hid:3d} k={k:2d} tap {tap_dtype:8s} (clusters of "
             f"{pl.cluster} x {pl.col_blocks}, {pl.npass} x {pl.dslice} rows"
@@ -1247,19 +1247,20 @@ def c_entry(lib, entry, argtypes):
     return fn
 
 
-def build_libraries(dirs, names):
+def build_libraries(dirs, names, flags=(), into="compare"):
     """Build ``<name>.cu`` for each of ``names`` from each kernel source
-    directory (one ``nvcc`` each, all at once, into ``build/compare/<i>``)
-    and return, per directory, each name's loaded library."""
+    directory (one ``nvcc`` each, all at once, with the package's flags
+    and ``flags``, into ``build/<into>/<i>``) and return, per directory,
+    each name's loaded library."""
     import ctypes
     from repro_torch.kernels import build
-    outs = [build.BUILD_DIR.parent / "compare" / str(i)
+    outs = [build.BUILD_DIR.parent / into / str(i)
             for i in range(len(dirs))]
     jobs = []
     for d, out in zip(dirs, outs):
         out.mkdir(parents=True, exist_ok=True)
         for name in names:
-            cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o",
+            cmd = [build.nvcc(), *build.NVCC_FLAGS, *flags, "-o",
                    str(out / f"{name}.so"), str(Path(d) / f"{name}.cu")]
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1391,23 +1392,28 @@ PROBE_TIMED = {"probe_update[gemma2-9b]": 16,  # label: rows (d 3584)
 
 def probe_floor(torch, probe):
     """The floor under a timed ``probe_update`` call (gemma2-9b width, 16
-    rows), timed as the calls are (L2 flushed) on its grid, clusters and
-    shared memory: an empty kernel, the ticket's memset and the empty
-    kernel (what the probe's launch pays), and a cooperative launch whose
-    CTAs meet at a grid barrier (the other way to the cross-cluster sum).
-    Also checks the plan's table of clusters the card holds at once."""
-    pl = probe.plan(16, 3584, 512, 10)
-    ticket = torch.zeros(4, dtype=torch.int32, device="cuda")
-    ms = [time_cold_ms(torch, lambda: probe.floor_launch(pl, mode, ticket))
-          for mode in (0, 1, 2)]
+    rows), timed as the calls are (L2 flushed): the ticket's memset and an
+    empty kernel on the call's grid, clusters and shared memory, which is
+    what the call's launch pays besides its work."""
+    import ctypes
+    from repro_torch.kernels import build
+    active = probe.active_clusters(0)
+    pl = probe.plan(16, 3584, 512, 10, active)
+    floor = c_entry(build.load("probe"), "probe_floor_launch",
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    ticket = torch.empty(4, dtype=torch.int32, device="cuda")
+
+    def launch():
+        err = floor(pl.cluster, pl.col_blocks, pl.smem, ticket.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"probe_floor_launch: CUDA error {err}")
+    ms = time_cold_ms(torch, launch)
     log(f"[time] {'probe_update launch floor':40s} {pl.cluster} x "
         f"{pl.col_blocks} CTAs in clusters of {pl.cluster}, {pl.smem} B of "
-        f"shared memory each, L2 flushed: empty kernel {ms[0]:.4f} ms; "
-        f"ticket memset + empty kernel {ms[1]:.4f} ms; cooperative launch "
-        f"+ grid barrier {ms[2]:.4f} ms")
-    card = {c: probe.active_clusters(c) for c in probe.ACTIVE_CLUSTERS}
-    log(f"[time] clusters the card holds at once at one CTA an SM: {card} "
-        f"(the plan's table: {card == probe.ACTIVE_CLUSTERS})")
+        f"shared memory each, L2 flushed: ticket memset + empty kernel "
+        f"{ms:.4f} ms; clusters of 1-8 CTAs the card holds at once at one "
+        f"CTA an SM: {active}")
     return ms
 
 
@@ -1423,13 +1429,18 @@ def parent_split_d(B: int, d: int, hid: int) -> tuple[int, int]:
 
 def compare_probe_builds(torch, dirs):
     """``--compare-probe DIR ...``: build ``probe.cu`` from each kernel
-    source directory DIR (this checkout's, or the parent commit's from
+    source directory DIR (this checkout's, or an earlier commit's from
     ``git archive``: a source with ``probe_hidden_kernel`` is the
-    two-kernel version, whose C entry takes ``parent_split_d``'s cut and
-    its scratch) and time it at the PROBE_TIMED shapes in turns (first to
-    last, then last to first) with L2 flushed before each call, each
-    build first held to PROBE_TOL against the plain version; then the
-    launch floor."""
+    two-kernel version of 6bb40c9 and before, whose C entry takes
+    ``parent_split_d``'s cut and its scratch; one with
+    ``cooperative_groups`` is 8e05cb8's, whose C entry also takes the
+    grid barrier's flag, 1 at these shapes) and time it at the
+    PROBE_TIMED shapes in turns (first to last, then last to first) with
+    L2 flushed before each call, each build first held to PROBE_TOL
+    against the plain version; a build of this checkout's kind with row
+    tiles of 4 at B=1 is also timed with row tiles of 16. Then the
+    launch floor and the phases of this checkout's kernel
+    (``probe_phases``)."""
     import ctypes
     from repro_torch.kernels import probe, ref
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -1440,18 +1451,27 @@ def compare_probe_builds(torch, dirs):
                           tap_dtype="bfloat16", seed=9)
         args = list(case.values())
         want = ref.probe_update_ref(*args)
-        fns = []
+        pl = probe.plan(B, d, hid, k, probe.active_clusters(0))
+        builds = []
         for src, lib in zip(dirs, libs):
+            text = (Path(src) / "probe.cu").read_text()
+            if "probe_hidden_kernel" in text:
+                cut = parent_split_d(B, d, hid)
+                builds.append((src, lib, cut, cut[0] * B * hid))
+                continue
+            cut = (pl.row_tile, pl.cluster, pl.dslice, pl.npass)
+            if "cooperative_groups" in text:
+                builds.append((src, lib, cut + (1,), pl.scratch))
+                continue
+            builds.append((src, lib, cut, pl.scratch))
+            if pl.row_tile != 16:
+                builds.append((f"{src} (row tiles of 16)", lib,
+                               (16,) + cut[1:], pl.scratch))
+        fns = []
+        for src, lib, cut, size in builds:
             q_new = torch.empty((B, k), dtype=torch.float32, device="cuda")
             p = torch.empty_like(q_new)
-            if "probe_hidden_kernel" in (Path(src) / "probe.cu").read_text():
-                cut = parent_split_d(B, d, hid)
-                scratch = torch.empty(cut[0] * B * hid, device="cuda")
-            else:
-                pl = probe.plan(B, d, hid, k)
-                cut = (pl.row_tile, pl.cluster, pl.dslice, pl.npass,
-                       int(pl.grid_sync))
-                scratch = torch.empty(pl.scratch, device="cuda")
+            scratch = torch.empty(size, device="cuda")
             fn = c_entry(lib["probe"], "probe_update_launch",
                          [ptr] * 10 + [i32] * (5 + len(cut)) + [ptr])
 
@@ -1477,10 +1497,67 @@ def compare_probe_builds(torch, dirs):
         b_ms, by = probe_bound(case)
         log(f"[compare] {label} B={B} d={d} hid={hid} k={k} bf16 tap, L2 "
             "flushed: " + "; ".join(
-                f"{src}: {min(t):.4f} ms ({100 * b_ms / min(t):.1f}% of "
-                f"bound)" for src, t in zip(dirs, times))
+                f"{b[0]}: {min(t):.4f} ms ({100 * b_ms / min(t):.1f}% of "
+                f"bound)" for b, t in zip(builds, times))
             + f"; bound {b_ms:.4f} ms ({by})")
     probe_floor(torch, probe)
+    probe_phases(torch, probe)
+
+
+PROBE_PHASES = ("start", "requests issued", "tap staged", "w1 multiplied",
+                "cluster barrier", "partial logits", "ticket", "filtered")
+
+
+def probe_phases(torch, probe, calls=20):
+    """Where a ``probe_update`` call's time goes: this checkout's
+    ``probe.cu`` built with ``-DPROBE_STAMPS`` (every CTA stamps the
+    global timer at each phase) at the PROBE_TIMED shapes, ``calls``
+    calls after one warm-up, L2 flushed before each. Per phase: the median
+    over CTAs of its stamp less the call's first start, then the median
+    over calls, in microseconds; "filtered" is the last CTA's alone. The
+    launch and the ticket's memset come before the first stamp."""
+    import ctypes
+    import numpy as np
+    from repro_torch.kernels import build, ref
+    lib = build_libraries([build.CSRC], ["probe"], ("-DPROBE_STAMPS",),
+                          "stamps")[0]["probe"]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    launch = c_entry(lib, "probe_update_launch", [ptr] * 10 + [i32] * 9
+                     + [ptr])
+    take = c_entry(lib, "probe_take_stamps", [ptr, i32])
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    d, hid, k = 3584, 512, 10
+    for label, B in PROBE_TIMED.items():
+        args = list(probe_case(torch, B=B, d=d, hid=hid, k=k,
+                               tap_dtype="bfloat16", seed=9).values())
+        pl = probe.plan(B, d, hid, k, probe.active_clusters(0))
+        out = [torch.empty(n, device="cuda") for n in (B * k, B * k,
+                                                       pl.scratch)]
+        ctas = pl.cluster * pl.col_blocks
+        host = (ctypes.c_ulonglong * (ctas * len(PROBE_PHASES)))()
+        runs = []
+        for i in range(calls + 1):
+            flush.zero_()
+            err = launch(*(a.data_ptr() for a in args),
+                         *(t.data_ptr() for t in out), 1, B, d, hid, k,
+                         pl.row_tile, pl.cluster, pl.dslice, pl.npass,
+                         torch.cuda.current_stream().cuda_stream)
+            err = err or take(host, len(host))
+            if err:
+                fail(f"{label} (stamped build): CUDA error {err}")
+            st = np.array(host, dtype=np.int64).reshape(ctas, -1)
+            if i:
+                runs.append([np.median(st[st[:, j] > 0, j] - st[:, 0].min())
+                             / 1e3 for j in range(len(PROBE_PHASES))])
+        want = ref.probe_update_ref(*args)
+        errs = [float((a.view(B, k) - b).abs().max())
+                for a, b in zip(out, want)]
+        if max(errs) > PROBE_TOL:
+            fail(f"{label} (stamped build) disagrees with its plain version")
+        log(f"[phases] {label} B={B} bf16 tap, L2 flushed, {ctas} CTAs, "
+            f"median of {calls} calls, us from the first CTA's start: "
+            + "; ".join(f"{n} {m:.2f}" for n, m in
+                        zip(PROBE_PHASES, np.median(runs, axis=0))))
 
 
 def phase_time(torch):

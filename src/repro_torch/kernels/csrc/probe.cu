@@ -24,8 +24,10 @@
 //    1): a cluster owns a block of 32 hid columns, each of its CTAs a d
 //    slice of dslice rows (npass slices a CTA, one after the other, only
 //    where d is too long for the cluster's shared memory). A CTA takes
-//    more than half an SM's shared memory, so no two share an SM, and
-//    the plan keeps the grid to clusters the card places at once.
+//    more than half an SM's shared memory, so no two share an SM; the
+//    plan takes the largest cluster of which the card holds the grid's
+//    clusters at once (cudaOccupancyMaxActiveClusters, probe_active_
+//    clusters), so they stream in one wave.
 // 2. Stream. Each thread first asks for its share of the tap slice (16
 //    bytes a load where the shape allows); then warp 0 asks for the CTA's
 //    whole tile: one TMA copy (a 32 x 128 box of a 2D tensor map of w1,
@@ -46,15 +48,14 @@
 //    row's k partial logits from its 32 columns and their rows of w2
 //    (staged in shared memory at the start), written to the call's
 //    scratch.
-// 5. The cross-cluster sum and the filter. Where the grid fits the card
-//    at once (the plan's grid_sync) the launch is cooperative and the
-//    CTAs meet at a grid barrier (cg::this_grid().sync()), after which
-//    the grid's warps take a row each, its prior formed while the
-//    cluster met; otherwise every CTA takes a ticket (an atomic counter
-//    the C entry zeroes with cudaMemsetAsync before the launch) and the
-//    last one takes every row. A row's warp sums its partial logits over
-//    the column blocks in block order (lane = bin), adds b2 and does the
-//    softmax, the prior (T staged at the start) and the posterior.
+// 5. The cross-cluster sum and the filter. Every CTA takes a ticket (an
+//    atomic counter in the call's scratch, which the C entry zeroes with
+//    cudaMemsetAsync before the launch), and the last one filters every
+//    row, a warp a row: it sums the row's partial logits over the column
+//    blocks in block order (lane = bin), adds b2 and does the softmax,
+//    the prior (T staged at the start) and the posterior. The ticket
+//    needs no grid that fits the card at once, so every shape takes the
+//    same path.
 //
 // Every sum is taken in a fixed order (no float atomics), so two calls
 // on the same inputs agree bit for bit; nothing lives past a call, so
@@ -62,17 +63,21 @@
 // within 1e-5 of the plain version (sums over d and hid in another
 // order).
 //
-// What is left: at decode sizes a chain of latencies, not the bytes,
-// sets the time: the launch, the tap's round trip before the first FMA,
-// the cluster barrier, the grid barrier and the partial logits' L2 round
-// trip before the filter (PERF.md has them). A CTA streams its tile well
-// below its share of the memory rate, and clusters of 7 or 8 CTAs fit
-// only 15 at a time at one CTA an SM, so at hid 512 the plan takes
-// clusters of 6 on 96 SMs.
+// What is left: at decode sizes the call takes several times its byte
+// bound, and where the time goes is an open question (PERF.md): the
+// launch and the ticket's memset, the tap's round trip before the first
+// FMA, the cluster barrier, the ticket and the partial logits' L2 round
+// trip before the filter all lie on the call's path. Clusters of 7 or 8
+// CTAs fit only 15 at a time at one CTA an SM, so at hid 512 the plan
+// takes clusters of 6 on 96 SMs.
+//
+// Built with -DPROBE_STAMPS (chip_smoke.py --compare-probe does), thread
+// 0 of every CTA also writes the global timer at each phase of the call
+// (the Stamp enum) into probe_stamps, which probe_take_stamps reads; the
+// kernel's library has none of it.
 //
 // Plain C interface for ctypes; the entries return a CUDA error code.
 
-#include <cooperative_groups.h>
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up
                     // in libcuda at run time
 #include <cuda_runtime.h>
@@ -81,8 +86,6 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -98,6 +101,28 @@ constexpr int kTapVecs = 8;               // 16-byte tap loads a thread holds
 constexpr int kTapRegs = 32;              // or scalar ones
 constexpr size_t kMaxSmem = 232448;       // 227 KB, a CTA's most
 constexpr size_t kOnePerSm = 120 * 1024;  // more than half an SM's
+
+#ifdef PROBE_STAMPS
+// The phases a CTA stamps (the first row tile's): its start; its tap and
+// w1 requests issued; the tap staged; the w1 tile multiplied; the cluster
+// barrier after the partial h's exchange passed; its partial logits
+// written; its ticket taken; and, the last CTA only, every row filtered.
+enum Stamp { kStart, kIssued, kStaged, kStreamed, kClustered, kLogits,
+             kTicket, kFiltered, kStamps };
+constexpr int kStampCtas = 1024;
+__device__ unsigned long long probe_stamps[kStampCtas * kStamps];
+
+__device__ __forceinline__ void stamp(int phase) {
+  const int cta = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x != 0 || cta >= kStampCtas) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  probe_stamps[cta * kStamps + phase] = t;
+}
+#define STAMP(phase) stamp(phase)
+#else
+#define STAMP(phase) ((void)0)
+#endif
 
 // Dynamic shared memory of a CTA: per stage the w1 rows, the tap rows
 // (RT floats each) and an mbarrier; then the warps' partial sums, the
@@ -327,14 +352,12 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // The filter of tap row b by one warp, lane = bin: the column blocks'
-// partial logits summed in block order, b2, the softmax, the prior (given
-// in `prior` when has_prior, else formed from q_prev and T) and the
-// posterior.
+// partial logits summed in block order, b2, the softmax, the prior from
+// q_prev and T, and the posterior.
 __device__ __forceinline__ void filter_row(
     const float* __restrict__ plog, const float* __restrict__ q_prev,
     const float* b2_s, const float* t_s, float* __restrict__ q_new,
-    float* __restrict__ p_out, int B, int k, int ncb, int b, bool has_prior,
-    float prior) {
+    float* __restrict__ p_out, int B, int k, int ncb, int b) {
   const int lane = threadIdx.x % 32;
   const bool in = lane < k;
   float logit = -INFINITY, qp = 0.f;
@@ -343,18 +366,16 @@ __device__ __forceinline__ void filter_row(
 #pragma unroll 16
     for (int j = 0; j < ncb; ++j)
       sum += __ldcg(plog + ((size_t)j * B + b) * k + lane);
-    if (!has_prior) qp = q_prev[(size_t)b * k + lane];
+    qp = q_prev[(size_t)b * k + lane];
     logit = sum + b2_s[lane];
   }
   const float m = warp_max(logit);
   const float e = in ? expf(logit - m) : 0.f;
   const float p = e / warp_sum(e);
-  if (!has_prior) {
-    prior = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float qj = __shfl_sync(0xffffffffu, qp, j);
-      if (in) prior = fmaf(qj, t_s[lane * k + j], prior);
-    }
+  float prior = 0.f;
+  for (int j = 0; j < k; ++j) {
+    const float qj = __shfl_sync(0xffffffffu, qp, j);
+    if (in) prior = fmaf(qj, t_s[lane * k + j], prior);
   }
   const float post = prior * p;
   const float z = warp_sum(post);
@@ -377,7 +398,7 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
     const float* __restrict__ q_prev, const float* __restrict__ Tm,
     float* __restrict__ q_new, float* __restrict__ p_out,
     unsigned* __restrict__ ticket, float* __restrict__ plog, int B, int d,
-    int hid, int k, int dslice, int npass, int grid_sync) {
+    int hid, int k, int dslice, int npass) {
   using M = Map<RT>;
   using Tap = TapBatch<T, RT>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -401,6 +422,7 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
   const int rg = slot / M::kSD, dgrp = warp * M::kSD + slot % M::kSD;
   const bool tma = hid % 4 == 0;
   const bool vec = d % Tap::V == 0 && dslice % Tap::V == 0;
+  STAMP(kStart);
   auto slice_rows = [&](int p, int& d0) {
     d0 = (p * cs + rank) * dslice;
     return max(0, min(dslice, d - d0));
@@ -427,13 +449,6 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
     if (tma) load_tile(&map, true, w1, w_s, bar0, stages, d0_first,
                        rows_first, hid, j0);
   }
-  // with a grid barrier, the row this warp filters at the end is known:
-  // its previous posterior is read now, its prior formed while the
-  // cluster meets
-  const int my_row = (blockIdx.y * cs + rank) * kWarps + warp;
-  const bool own_row = grid_sync && my_row < B && lane < k;
-  const float my_qp = own_row ? q_prev[(size_t)my_row * k + lane] : 0.f;
-  float my_prior = 0.f;
   // the cluster's rows of w2 and b1, T and b2 (waited for after the FMAs)
   for (int i = tid; i < ncols * k; i += kThreads)
     cp_async4z(tc::smem_u32(w2_s + i), w2 + (size_t)j0 * k + i, 4);
@@ -446,6 +461,7 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
     load_tile(&map, false, w1, w_s, bar0, stages, d0_first, rows_first,
               hid, j0);
   }
+  STAMP(kIssued);
 
   int loads = 1;
   const int nrt = (B + RT - 1) / RT;
@@ -475,6 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
         tb.store(vec, tap_s, base, nel);
       }
       __syncthreads();
+      if (rt == 0 && p == 0) STAMP(kStaged);
       // each stage as it lands, kRows rows a thread
       const uint32_t parity = (loads - 1) & 1;
       const float4* w4 = reinterpret_cast<const float4*>(w_s) + cg;
@@ -488,6 +505,7 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
         }
       }
     }
+    if (rt == 0) STAMP(kStreamed);
     // the CTA's partial h: a warp's d groups (lanes 8 apart) by shuffles,
     // then the warps in order
 #pragma unroll
@@ -523,12 +541,8 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
                  sum);
     }
     cluster_arrive();
-    if (rt == 0)
-      for (int j = 0; j < k; ++j) {
-        const float qj = __shfl_sync(0xffffffffu, my_qp, j);
-        if (own_row) my_prior = fmaf(qj, t_s[lane * k + j], my_prior);
-      }
     cluster_wait();
+    if (rt == 0) STAMP(kClustered);
     const int mine = rank < nrows ? (nrows - rank + cs - 1) / cs : 0;
     for (int idx = tid; idx < mine * kCols; idx += kThreads) {
       const int r = rank + cs * (idx / kCols), col = idx % kCols;
@@ -550,40 +564,32 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
       plog[((size_t)cb * B + r0 + rank + cs * i) * k + c] =
           (lg[0] + lg[1]) + (lg[2] + lg[3]);
     }
+    if (rt == 0) STAMP(kLogits);
   }
 
-  // the partial logits meet: at a grid barrier (a cooperative launch,
-  // where the plan's grid fits the card at once), after which every warp
-  // of the grid may filter a row; or by a ticket, the last CTA to take
-  // one filtering every row (the barrier orders the CTA's writes before
-  // thread 0's fence)
-  int first = warp, step = kWarps;
-  if (grid_sync) {
-    cg::this_grid().sync();
-    first += (blockIdx.y * cs + rank) * kWarps;
-    step *= cs * ncb;
-  } else {
-    __syncthreads();
-    if (tid == 0) {
-      __threadfence();
-      const bool last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
-      if (last) __threadfence();
-      flag_s[0] = last;
-    }
-    __syncthreads();
-    if (!flag_s[0]) return;
+  // the partial logits meet by a ticket: the last CTA to take one filters
+  // every row (the barrier orders the CTA's writes before thread 0's
+  // fence)
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const bool last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+    if (last) __threadfence();
+    flag_s[0] = last;
   }
-  for (int b = first; b < B; b += step)
-    filter_row(plog, q_prev, b2_s, t_s, q_new, p_out, B, k, ncb, b,
-               grid_sync && b == my_row, my_prior);
+  __syncthreads();
+  STAMP(kTicket);
+  if (!flag_s[0]) return;
+  for (int b = warp; b < B; b += kWarps)
+    filter_row(plog, q_prev, b2_s, t_s, q_new, p_out, B, k, ncb, b);
+#ifdef PROBE_STAMPS
+  __syncthreads();
+  STAMP(kFiltered);
+#endif
 }
 
-// The launch floor, timed beside the probe: an empty kernel, and one
-// whose CTAs meet at a grid barrier (the other way to a cross-cluster
-// sum, by a cooperative launch).
+// The launch floor, timed beside the probe: an empty kernel.
 __global__ void probe_floor_kernel() {}
-
-__global__ void probe_grid_sync_kernel() { cg::this_grid().sync(); }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -644,7 +650,7 @@ cudaError_t launch(const void* tap, const void* w1, const void* b1,
                    const void* w2, const void* b2, const void* q_prev,
                    const void* Tm, void* q_new, void* p, void* scratch, int B,
                    int d, int hid, int k, int cluster, int dslice, int npass,
-                   int grid_sync, cudaStream_t stream) {
+                   cudaStream_t stream) {
   auto kernel = probe_update_kernel<T, RT>;
   const size_t smem =
       smem_bytes(RT, (dslice + kStageRows - 1) / kStageRows);
@@ -660,26 +666,19 @@ cudaError_t launch(const void* tap, const void* w1, const void* b1,
   if (hid % 4 == 0 && !w1_map(&map, w1, d, hid))
     return cudaErrorInvalidValue;
   unsigned* ticket = static_cast<unsigned*>(scratch);
-  cudaError_t e = cudaSuccess;
-  if (!grid_sync) e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), stream);
+  cudaError_t e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), stream);
   if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[2];
-  cudaLaunchConfig_t cfg = cluster_config(
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
       dim3(cluster, (hid + kCols - 1) / kCols, 1), cluster, smem, stream,
       attr);
-  if (grid_sync) {
-    attr[1].id = cudaLaunchAttributeCooperative;
-    attr[1].val.cooperative = 1;
-    cfg.numAttrs = 2;
-  }
   e = cudaLaunchKernelEx(
       &cfg, kernel, map, static_cast<const T*>(tap),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(q_prev), static_cast<const float*>(Tm),
       static_cast<float*>(q_new), static_cast<float*>(p), ticket,
-      static_cast<float*>(scratch) + 4, B, d, hid, k, dslice, npass,
-      grid_sync);
+      static_cast<float*>(scratch) + 4, B, d, hid, k, dslice, npass);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -687,18 +686,15 @@ cudaError_t launch(const void* tap, const void* w1, const void* b1,
 
 // dtype (of the tap): 0 = float32, 1 = bfloat16. The plan (probe.py
 // plan()): row_tile 4 or 16, cluster <= 8 CTAs, dslice rows a slice,
-// npass slices a CTA (cluster * npass * dslice >= d), grid_sync 1 for a
-// cooperative launch (the grid fits the card at once) or 0 for the
-// ticket. scratch: 4 + (hid / 32 rounded up) * B * k floats, the ticket
-// first.
+// npass slices a CTA (cluster * npass * dslice >= d). scratch: 4 + (hid /
+// 32 rounded up) * B * k floats, the ticket first.
 extern "C" int probe_update_launch(const void* tap, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* b2, const void* q_prev,
                                    const void* T, void* q_new, void* p,
                                    void* scratch, int dtype, int B, int d,
                                    int hid, int k, int row_tile, int cluster,
-                                   int dslice, int npass, int grid_sync,
-                                   void* stream) {
+                                   int dslice, int npass, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || d < 1 || hid < 1 || k < 1 || k > kMaxBins || cluster < 1 ||
       cluster > kMaxCluster || dslice < 1 || npass < 1 ||
@@ -707,7 +703,7 @@ extern "C" int probe_update_launch(const void* tap, const void* w1,
 #define PROBE_LAUNCH(TYPE, RT)                                               \
   return (int)launch<TYPE, RT>(tap, w1, b1, w2, b2, q_prev, T, q_new, p,   \
                                scratch, B, d, hid, k, cluster, dslice,     \
-                               npass, grid_sync, s)
+                               npass, s)
   if (dtype == 0 && row_tile == 4) PROBE_LAUNCH(float, 4);
   if (dtype == 0 && row_tile == 16) PROBE_LAUNCH(float, 16);
   if (dtype == 1 && row_tile == 4) PROBE_LAUNCH(__nv_bfloat16, 4);
@@ -717,57 +713,58 @@ extern "C" int probe_update_launch(const void* tap, const void* w1,
 }
 
 // The launch floor on the probe's grid and clusters with `smem` bytes of
-// dynamic shared memory. mode 0: an empty kernel; 1: the ticket's memset
-// (ticket), then the empty kernel; 2: a cooperative launch whose CTAs
-// meet at a grid barrier.
-extern "C" int probe_floor_launch(int mode, int cluster, int col_blocks,
-                                  int smem, void* ticket, void* stream) {
+// dynamic shared memory, as a call launches it: the ticket's memset, then
+// an empty kernel.
+extern "C" int probe_floor_launch(int cluster, int col_blocks, int smem,
+                                  void* ticket, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode < 0 || mode > 2 || cluster < 1 || cluster > kMaxCluster ||
-      col_blocks < 1 || smem < 0 || (size_t)smem > kMaxSmem ||
-      (mode == 1 && ticket == nullptr))
+  if (cluster < 1 || cluster > kMaxCluster || col_blocks < 1 || smem < 0 ||
+      (size_t)smem > kMaxSmem || ticket == nullptr)
     return (int)cudaErrorInvalidValue;
   static bool sized = false;
   if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(
+    const cudaError_t e = cudaFuncSetAttribute(
         probe_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kMaxSmem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(probe_grid_sync_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  cudaError_t e = cudaSuccess;
-  if (mode == 1) e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr[2];
-  cudaLaunchConfig_t cfg =
-      cluster_config(dim3(cluster, col_blocks, 1), cluster, smem, s, attr);
-  if (mode == 2) {
-    attr[1].id = cudaLaunchAttributeCooperative;
-    attr[1].val.cooperative = 1;
-    cfg.numAttrs = 2;
-    e = cudaLaunchKernelEx(&cfg, probe_grid_sync_kernel);
-  } else {
-    e = cudaLaunchKernelEx(&cfg, probe_floor_kernel);
-  }
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-// How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
-// memory the card holds at once (the plan's ACTIVE_CLUSTERS), into *out.
-extern "C" int probe_active_clusters(int cluster, int smem, int* out) {
-  if (cluster < 1 || cluster > kMaxCluster || smem < 0 ||
-      (size_t)smem > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = probe_update_kernel<__nv_bfloat16, 16>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  cudaError_t e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      cluster_config(dim3(cluster, 1, 1), cluster, smem, nullptr, attr);
-  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+      cluster_config(dim3(cluster, col_blocks, 1), cluster, smem, s, attr);
+  e = cudaLaunchKernelEx(&cfg, probe_floor_kernel);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
+
+// How many clusters of 1 to 8 CTAs the current card holds at once at one
+// CTA an SM (kOnePerSm bytes of shared memory or more), into out[0..7].
+extern "C" int probe_active_clusters(int* out) {
+  auto kernel = probe_update_kernel<__nv_bfloat16, 16>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  for (int c = 1; c <= kMaxCluster && e == cudaSuccess; ++c) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        cluster_config(dim3(c, 1, 1), c, kOnePerSm, nullptr, attr);
+    e = cudaOccupancyMaxActiveClusters(out + c - 1, kernel, &cfg);
+  }
+  return (int)e;
+}
+
+#ifdef PROBE_STAMPS
+// The stamps of the calls since the last take (n values: kStamps a CTA, in
+// the order of blockIdx.y * cluster + blockIdx.x; 0 where not written),
+// into out; then zeroes them.
+extern "C" int probe_take_stamps(unsigned long long* out, int n) {
+  if (n < 0 || n > kStampCtas * kStamps) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out, probe_stamps, n * sizeof(*out));
+  void* dev = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&dev, probe_stamps);
+  if (e == cudaSuccess) e = cudaMemset(dev, 0, sizeof(probe_stamps));
+  return (int)e;
+}
+#endif

@@ -2,11 +2,13 @@
 
 The kernel (``csrc/probe.cu``) replaces the reference package's Pallas TPU
 kernel ``probe_update``: the probe MLP, its softmax and one Bayes-filter
-step in one launch. ``plan`` sizes the launch; ``probe_update`` checks its
-tensors, allocates the outputs and the call's scratch in one
-``torch.empty``, launches on the current CUDA stream, raises if the
-launch was refused, and counts the launch in ``build.launches``. Shapes
-and semantics are those of ``ref.probe_update_ref``.
+step in one launch. ``plan`` sizes the launch from the clusters the card
+holds at once (``active_clusters``, asked once per device);
+``probe_update`` checks its tensors, allocates the outputs and the call's
+scratch in one ``torch.empty``, launches on the current CUDA stream,
+raises if the launch was refused, and counts the launch in
+``build.launches``. Shapes and semantics are those of
+``ref.probe_update_ref``.
 """
 
 from __future__ import annotations
@@ -19,10 +21,6 @@ import torch
 
 from repro_torch.kernels import build
 
-SMS = 132                 # H100 SXM streaming multiprocessors
-#: clusters of n CTAs an H100 SXM holds at once at one CTA an SM
-#: (cudaOccupancyMaxActiveClusters; chip_smoke.py checks it on the card)
-ACTIVE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 MAX_SMEM = 232448         # shared memory a CTA may take (227 KB)
 MAX_CLUSTER = 8           # the portable cluster size
 COLS = 32                 # hid columns of a cluster
@@ -41,9 +39,8 @@ def _library():
     if _lib is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         _lib = build.bind("probe", {
-            "probe_update_launch": [ptr] * 10 + [i32] * 10 + [ptr],
-            "probe_floor_launch": [i32] * 4 + [ptr, ptr],
-            "probe_active_clusters": [i32, i32, ptr]})
+            "probe_update_launch": [ptr] * 10 + [i32] * 9 + [ptr],
+            "probe_active_clusters": [ptr]})
     return _lib
 
 
@@ -53,9 +50,7 @@ class Plan(NamedTuple):
     columns; CTA ``q`` of a cluster takes the d slices ``p * cluster +
     q`` for ``p < npass``, slice ``s`` being rows ``[s * dslice, (s + 1)
     * dslice)`` cut at d; ``smem`` bytes of shared memory a CTA;
-    ``scratch`` floats (the ticket, then the partial logits);
-    ``grid_sync``: the grid fits the card at once, so the launch is
-    cooperative and the CTAs meet at a grid barrier, else at a ticket."""
+    ``scratch`` floats (the ticket, then the partial logits)."""
     row_tile: int
     cluster: int
     dslice: int
@@ -63,7 +58,6 @@ class Plan(NamedTuple):
     col_blocks: int
     smem: int
     scratch: int
-    grid_sync: bool
 
 
 def smem_bytes(row_tile: int, dslice: int) -> int:
@@ -79,17 +73,18 @@ def smem_bytes(row_tile: int, dslice: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def plan(B: int, d: int, hid: int, k: int) -> Plan:
+def plan(B: int, d: int, hid: int, k: int, active: tuple[int, ...]) -> Plan:
     """Cut a call so that one wave of CTAs, one an SM, streams w1 once:
     the largest cluster (up to 8 CTAs over d, at least 32 rows a slice)
-    whose hid / 32 column blocks the card holds at once, each CTA's tile
-    resident in its shared memory; where d is too long for that, each CTA
-    takes npass slices in turn. Slices are whole 8-row chunks where d
-    allows, so the tap loads 16 bytes at a time."""
+    of which the card holds the hid / 32 column blocks at once
+    (``active[c - 1]`` clusters of c CTAs, ``active_clusters``), each
+    CTA's tile resident in its shared memory; where d is too long for
+    that, each CTA takes npass slices in turn. Slices are whole 8-row
+    chunks where d allows, so the tap loads 16 bytes at a time."""
     row_tile = 16 if B > 4 else 4
     col_blocks = -(-hid // COLS)
-    cluster = max([c for c, n in ACTIVE_CLUSTERS.items() if n >= col_blocks]
-                  + [1])
+    cluster = max([c for c, n in enumerate(active[:MAX_CLUSTER], 1)
+                   if n >= col_blocks] + [1])
     cluster = max(1, min(cluster, MAX_CLUSTER, -(-d // MIN_ROWS)))
     max_rows = STAGE_ROWS
     while smem_bytes(row_tile, max_rows + STAGE_ROWS) <= MAX_SMEM:
@@ -101,8 +96,18 @@ def plan(B: int, d: int, hid: int, k: int) -> Plan:
     if npass == 1:
         cluster = -(-d // dslice)           # no empty slice
     return Plan(row_tile, cluster, dslice, npass, col_blocks,
-                smem_bytes(row_tile, dslice), TICKET + col_blocks * B * k,
-                ACTIVE_CLUSTERS[cluster] >= col_blocks)
+                smem_bytes(row_tile, dslice), TICKET + col_blocks * B * k)
+
+
+@functools.lru_cache(maxsize=None)
+def active_clusters(device: int) -> tuple[int, ...]:
+    """How many clusters of 1 to 8 CTAs, one CTA an SM, CUDA device
+    ``device`` holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    out = (ctypes.c_int * MAX_CLUSTER)()
+    with torch.cuda.device(device):
+        build.raise_on(_library().probe_active_clusters(out),
+                       "probe_active_clusters")
+    return tuple(out)
 
 
 def _round4(n: int) -> int:
@@ -135,7 +140,7 @@ def probe_update(tap, w1, b1, w2, b2, q_prev, T):
     if not (B >= 1 and d >= 1 and 1 <= k <= 32 and 1 <= hid <= 8192):
         raise ValueError(f"unsupported sizes B={B}, d={d}, hid={hid}, k={k} "
                          "(B, d >= 1, hid <= 8192, k <= 32)")
-    pl = plan(B, d, hid, k)
+    pl = plan(B, d, hid, k, active_clusters(tap.device.index))
     # one buffer: q_new, p and the scratch, each on a 16-byte boundary
     n = _round4(B * k)
     buf = torch.empty(2 * n + pl.scratch, dtype=torch.float32,
@@ -146,31 +151,8 @@ def probe_update(tap, w1, b1, w2, b2, q_prev, T):
         tap.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), q_prev.data_ptr(), T.data_ptr(), q_new.data_ptr(),
         p.data_ptr(), buf[2 * n:].data_ptr(), build.DTYPE_CODE[tap.dtype], B,
-        d, hid, k, pl.row_tile, pl.cluster, pl.dslice, pl.npass,
-        int(pl.grid_sync), stream)
+        d, hid, k, pl.row_tile, pl.cluster, pl.dslice, pl.npass, stream)
     build.raise_on(err, "probe_update")
     build.launches["probe_update"] += 1
     return q_new, p
 
-
-def floor_launch(pl: Plan, mode: int, ticket=None):
-    """The launch floor on ``pl``'s grid and clusters with its shared
-    memory, which the probe's time is read against: ``mode`` 0 an empty
-    kernel, 1 the memset of ``ticket`` (a CUDA tensor) and the empty
-    kernel, 2 a cooperative launch whose CTAs meet at a grid barrier. Not
-    counted as a probe launch."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _library().probe_floor_launch(
-        mode, pl.cluster, pl.col_blocks, pl.smem,
-        None if ticket is None else ticket.data_ptr(), stream)
-    build.raise_on(err, "probe_floor")
-
-
-def active_clusters(cluster: int, smem: int = ONE_PER_SM) -> int:
-    """Clusters of ``cluster`` CTAs with ``smem`` bytes of shared memory
-    each that the current card holds at once (``ACTIVE_CLUSTERS`` is the
-    H100 SXM's at ONE_PER_SM)."""
-    out = ctypes.c_int(0)
-    build.raise_on(_library().probe_active_clusters(
-        cluster, smem, ctypes.byref(out)), "probe_active_clusters")
-    return out.value
