@@ -902,7 +902,7 @@ PROBE_CASES = [  # label, B, d, hid, k, tap dtype, fallback
     ("k 1", 16, 3584, 512, 1, "bfloat16", False),    # p = 1: no fallback
     ("k 32", 16, 3584, 512, 32, "float32", True),
     ("d 20000", 17, 20000, 64, 10, "bfloat16", True),  # 3 slices a CTA
-    ("hid 8192", 6, 1600, 8192, 10, "float32", True),  # 256 CTAs, 2 waves
+    ("hid 8192", 6, 1600, 8192, 10, "float32", True),  # 256 blocks, 132 CTAs
 ]
 
 
@@ -1001,9 +1001,9 @@ def phase_check(torch):
         fell_back = bool(torch.allclose(got[0][0], prior, atol=PROBE_TOL))
         pl = probe.plan(B, d, hid, k, probe.active_clusters(0))
         log(f"[check] {'probe_update':30s} {label:12s} B={B:2d} d={d:5d} "
-            f"hid={hid:3d} k={k:2d} tap {tap_dtype:8s} (clusters of "
-            f"{pl.cluster} x {pl.col_blocks}, {pl.npass} x {pl.dslice} rows"
-            f" a CTA): max|kernel-plain| q_new {errs[0]:.3e}, p "
+            f"hid={hid:3d} k={k:2d} tap {tap_dtype:8s} ({pl.clusters} "
+            f"clusters of {pl.cluster} for {pl.col_blocks} column blocks, "
+            f"{pl.npass} x {pl.dslice} rows a CTA): max|kernel-plain| q_new {errs[0]:.3e}, p "
             f"{errs[1]:.3e} (tol {PROBE_TOL:.0e}); row 0 fell back to its "
             f"prior: {fell_back}")
         if max(errs) > PROBE_TOL or (fallback and not fell_back):
@@ -1392,26 +1392,25 @@ PROBE_TIMED = {"probe_update[gemma2-9b]": 16,  # label: rows (d 3584)
 
 def probe_floor(torch, probe):
     """The floor under a timed ``probe_update`` call (gemma2-9b width, 16
-    rows), timed as the calls are (L2 flushed): the ticket's memset and an
-    empty kernel on the call's grid, clusters and shared memory, which is
-    what the call's launch pays besides its work."""
+    rows), timed as the calls are (L2 flushed): an empty kernel launched
+    as the call is (cooperative, on its grid, clusters and shared
+    memory)."""
     import ctypes
     from repro_torch.kernels import build
     active = probe.active_clusters(0)
     pl = probe.plan(16, 3584, 512, 10, active)
     floor = c_entry(build.load("probe"), "probe_floor_launch",
-                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-    ticket = torch.empty(4, dtype=torch.int32, device="cuda")
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
     def launch():
-        err = floor(pl.cluster, pl.col_blocks, pl.smem, ticket.data_ptr(),
+        err = floor(pl.cluster, pl.clusters, pl.smem,
                     torch.cuda.current_stream().cuda_stream)
         if err:
             fail(f"probe_floor_launch: CUDA error {err}")
     ms = time_cold_ms(torch, launch)
     log(f"[time] {'probe_update launch floor':40s} {pl.cluster} x "
-        f"{pl.col_blocks} CTAs in clusters of {pl.cluster}, {pl.smem} B of "
-        f"shared memory each, L2 flushed: ticket memset + empty kernel "
+        f"{pl.clusters} CTAs in clusters of {pl.cluster}, {pl.smem} B of "
+        f"shared memory each, L2 flushed: an empty cooperative kernel "
         f"{ms:.4f} ms; clusters of 1-8 CTAs the card holds at once at one "
         f"CTA an SM: {active}")
     return ms
@@ -1429,12 +1428,10 @@ def parent_split_d(B: int, d: int, hid: int) -> tuple[int, int]:
 
 def compare_probe_builds(torch, dirs):
     """``--compare-probe DIR ...``: build ``probe.cu`` from each kernel
-    source directory DIR (this checkout's, or an earlier commit's from
+    source directory DIR (this checkout's, or the parent commit's from
     ``git archive``: a source with ``probe_hidden_kernel`` is the
     two-kernel version of 6bb40c9 and before, whose C entry takes
-    ``parent_split_d``'s cut and its scratch; one with
-    ``cooperative_groups`` is 8e05cb8's, whose C entry also takes the
-    grid barrier's flag, 1 at these shapes) and time it at the
+    ``parent_split_d``'s cut and its scratch) and time it at the
     PROBE_TIMED shapes in turns (first to last, then last to first) with
     L2 flushed before each call, each build first held to PROBE_TOL
     against the plain version; a build of this checkout's kind with row
@@ -1459,10 +1456,7 @@ def compare_probe_builds(torch, dirs):
                 cut = parent_split_d(B, d, hid)
                 builds.append((src, lib, cut, cut[0] * B * hid))
                 continue
-            cut = (pl.row_tile, pl.cluster, pl.dslice, pl.npass)
-            if "cooperative_groups" in text:
-                builds.append((src, lib, cut + (1,), pl.scratch))
-                continue
+            cut = (pl.row_tile, pl.cluster, pl.clusters, pl.dslice, pl.npass)
             builds.append((src, lib, cut, pl.scratch))
             if pl.row_tile != 16:
                 builds.append((f"{src} (row tiles of 16)", lib,
@@ -1505,7 +1499,8 @@ def compare_probe_builds(torch, dirs):
 
 
 PROBE_PHASES = ("start", "requests issued", "tap staged", "w1 multiplied",
-                "cluster barrier", "partial logits", "ticket", "filtered")
+                "cluster barrier", "partial logits", "grid barrier",
+                "filtered")
 
 
 def probe_phases(torch, probe, calls=20):
@@ -1513,16 +1508,16 @@ def probe_phases(torch, probe, calls=20):
     ``probe.cu`` built with ``-DPROBE_STAMPS`` (every CTA stamps the
     global timer at each phase) at the PROBE_TIMED shapes, ``calls``
     calls after one warm-up, L2 flushed before each. Per phase: the median
-    over CTAs of its stamp less the call's first start, then the median
-    over calls, in microseconds; "filtered" is the last CTA's alone. The
-    launch and the ticket's memset come before the first stamp."""
+    over CTAs of its stamp less the call's first start ("filtered": the
+    latest, when the call's last row is done), then the median over
+    calls, in microseconds. The launch comes before the first stamp."""
     import ctypes
     import numpy as np
     from repro_torch.kernels import build, ref
     lib = build_libraries([build.CSRC], ["probe"], ("-DPROBE_STAMPS",),
                           "stamps")[0]["probe"]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    launch = c_entry(lib, "probe_update_launch", [ptr] * 10 + [i32] * 9
+    launch = c_entry(lib, "probe_update_launch", [ptr] * 10 + [i32] * 10
                      + [ptr])
     take = c_entry(lib, "probe_take_stamps", [ptr, i32])
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
@@ -1533,22 +1528,23 @@ def probe_phases(torch, probe, calls=20):
         pl = probe.plan(B, d, hid, k, probe.active_clusters(0))
         out = [torch.empty(n, device="cuda") for n in (B * k, B * k,
                                                        pl.scratch)]
-        ctas = pl.cluster * pl.col_blocks
+        ctas = pl.cluster * pl.clusters
         host = (ctypes.c_ulonglong * (ctas * len(PROBE_PHASES)))()
         runs = []
         for i in range(calls + 1):
             flush.zero_()
             err = launch(*(a.data_ptr() for a in args),
                          *(t.data_ptr() for t in out), 1, B, d, hid, k,
-                         pl.row_tile, pl.cluster, pl.dslice, pl.npass,
-                         torch.cuda.current_stream().cuda_stream)
+                         pl.row_tile, pl.cluster, pl.clusters, pl.dslice,
+                         pl.npass, torch.cuda.current_stream().cuda_stream)
             err = err or take(host, len(host))
             if err:
                 fail(f"{label} (stamped build): CUDA error {err}")
             st = np.array(host, dtype=np.int64).reshape(ctas, -1)
             if i:
-                runs.append([np.median(st[st[:, j] > 0, j] - st[:, 0].min())
-                             / 1e3 for j in range(len(PROBE_PHASES))])
+                t = (st - st[:, :1].min()) / 1e3
+                runs.append([np.median(t[:, j]) for j in range(len(t[0]) - 1)]
+                            + [t[:, -1].max()])
         want = ref.probe_update_ref(*args)
         errs = [float((a.view(B, k) - b).abs().max())
                 for a, b in zip(out, want)]

@@ -20,14 +20,16 @@
 // B <= 16 the CUDA cores' float32 rate keeps pace with the bytes. One
 // launch does it all (the wrapper's plan, probe.py plan(), sizes it):
 //
-// 1. Tiles. The grid is (cluster, hid/32) with clusters of (cluster, 1,
-//    1): a cluster owns a block of 32 hid columns, each of its CTAs a d
-//    slice of dslice rows (npass slices a CTA, one after the other, only
-//    where d is too long for the cluster's shared memory). A CTA takes
-//    more than half an SM's shared memory, so no two share an SM; the
-//    plan takes the largest cluster of which the card holds the grid's
-//    clusters at once (cudaOccupancyMaxActiveClusters, probe_active_
-//    clusters), so they stream in one wave.
+// 1. Tiles. The grid is (cluster, clusters) with clusters of (cluster,
+//    1, 1): a cluster takes blocks of 32 hid columns (block blockIdx.y,
+//    then every clusters-th after it), each of its CTAs a d slice of
+//    dslice rows (npass slices a CTA, one after the other, only where d
+//    is too long for the cluster's shared memory). A CTA takes more than
+//    half an SM's shared memory, so no two share an SM. The plan takes
+//    the largest cluster of which the card holds a cluster a column block
+//    at once (cudaOccupancyMaxActiveClusters, probe_active_clusters), so
+//    that w1 streams in one wave; the grid never holds more clusters
+//    than the card does at once.
 // 2. Stream. Each thread first asks for its share of the tap slice (16
 //    bytes a load where the shape allows); then warp 0 asks for the CTA's
 //    whole tile: one TMA copy (a 32 x 128 box of a 2D tensor map of w1,
@@ -48,14 +50,13 @@
 //    row's k partial logits from its 32 columns and their rows of w2
 //    (staged in shared memory at the start), written to the call's
 //    scratch.
-// 5. The cross-cluster sum and the filter. Every CTA takes a ticket (an
-//    atomic counter in the call's scratch, which the C entry zeroes with
-//    cudaMemsetAsync before the launch), and the last one filters every
-//    row, a warp a row: it sums the row's partial logits over the column
-//    blocks in block order (lane = bin), adds b2 and does the softmax,
-//    the prior (T staged at the start) and the posterior. The ticket
-//    needs no grid that fits the card at once, so every shape takes the
-//    same path.
+// 5. The cross-cluster sum and the filter. The launch is cooperative
+//    and the CTAs meet at a grid barrier (cg::this_grid().sync(); it
+//    needs no zeroed memory, and the whole grid is resident at once).
+//    Then the grid's warps take a row each: a row's warp sums its partial
+//    logits over the column blocks in block order (lane = bin), adds b2
+//    and does the softmax, the prior (T staged at the start; the first
+//    row's prior formed while the cluster met) and the posterior.
 //
 // Every sum is taken in a fixed order (no float atomics), so two calls
 // on the same inputs agree bit for bit; nothing lives past a call, so
@@ -64,12 +65,11 @@
 // order).
 //
 // What is left: at decode sizes the call takes several times its byte
-// bound, and where the time goes is an open question (PERF.md): the
-// launch and the ticket's memset, the tap's round trip before the first
-// FMA, the cluster barrier, the ticket and the partial logits' L2 round
-// trip before the filter all lie on the call's path. Clusters of 7 or 8
-// CTAs fit only 15 at a time at one CTA an SM, so at hid 512 the plan
-// takes clusters of 6 on 96 SMs.
+// bound. The launch, the requests' issue, the tap's round trip before the
+// first FMA, the cluster barrier, the grid barrier and the filter's round
+// trips lie one after the other on the call's path (PERF.md has their
+// times). Clusters of 7 or 8 CTAs fit only 15 at a time at one CTA an
+// SM, so at hid 512 the plan takes clusters of 6 on 96 SMs.
 //
 // Built with -DPROBE_STAMPS (chip_smoke.py --compare-probe does), thread
 // 0 of every CTA also writes the global timer at each phase of the call
@@ -78,6 +78,7 @@
 //
 // Plain C interface for ctypes; the entries return a CUDA error code.
 
+#include <cooperative_groups.h>
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up
                     // in libcuda at run time
 #include <cuda_runtime.h>
@@ -86,6 +87,8 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -103,12 +106,12 @@ constexpr size_t kMaxSmem = 232448;       // 227 KB, a CTA's most
 constexpr size_t kOnePerSm = 120 * 1024;  // more than half an SM's
 
 #ifdef PROBE_STAMPS
-// The phases a CTA stamps (the first row tile's): its start; its tap and
-// w1 requests issued; the tap staged; the w1 tile multiplied; the cluster
-// barrier after the partial h's exchange passed; its partial logits
-// written; its ticket taken; and, the last CTA only, every row filtered.
+// The phases a CTA stamps (its first column block's and row tile's): its
+// start; its tap and w1 requests issued; the tap staged; the w1 tile
+// multiplied; the cluster barrier after the partial h's exchange passed;
+// its partial logits written; the grid barrier passed; its rows filtered.
 enum Stamp { kStart, kIssued, kStaged, kStreamed, kClustered, kLogits,
-             kTicket, kFiltered, kStamps };
+             kGridSynced, kFiltered, kStamps };
 constexpr int kStampCtas = 1024;
 __device__ unsigned long long probe_stamps[kStampCtas * kStamps];
 
@@ -127,12 +130,12 @@ __device__ __forceinline__ void stamp(int phase) {
 // Dynamic shared memory of a CTA: per stage the w1 rows, the tap rows
 // (RT floats each) and an mbarrier; then the warps' partial sums, the
 // partial h received from the cluster, the cluster's rows of w2 and b1, T
-// and b2, and a flag; at least kOnePerSm. Mirrored by probe.py.
+// and b2; at least kOnePerSm. Mirrored by probe.py.
 constexpr size_t smem_bytes(int rt, int stages) {
   const size_t n =
       (size_t)stages * (kStageBytes + kStageRows * rt * 4 + 8) +
       (size_t)rt * kCols * 4 * (kWarps + kMaxCluster) +
-      kCols * (kMaxBins + 1) * 4 + kMaxBins * (kMaxBins + 1) * 4 + 16;
+      kCols * (kMaxBins + 1) * 4 + kMaxBins * (kMaxBins + 1) * 4;
   return n > kOnePerSm ? n : kOnePerSm;
 }
 
@@ -351,13 +354,27 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// The prior of row b in lane = bin: T q_prev[b], from the row's previous
+// posterior qp (lane = bin) and T staged in t_s.
+__device__ __forceinline__ float prior_of(float qp, const float* t_s, int k) {
+  const int lane = threadIdx.x % 32;
+  float prior = 0.f;
+  for (int j = 0; j < k; ++j) {
+    const float qj = __shfl_sync(0xffffffffu, qp, j);
+    if (lane < k) prior = fmaf(qj, t_s[lane * k + j], prior);
+  }
+  return prior;
+}
+
 // The filter of tap row b by one warp, lane = bin: the column blocks'
-// partial logits summed in block order, b2, the softmax, the prior from
-// q_prev and T, and the posterior.
+// partial logits summed in block order, b2, the softmax, the prior (given
+// in `prior` when has_prior, else formed from q_prev and T) and the
+// posterior.
 __device__ __forceinline__ void filter_row(
     const float* __restrict__ plog, const float* __restrict__ q_prev,
     const float* b2_s, const float* t_s, float* __restrict__ q_new,
-    float* __restrict__ p_out, int B, int k, int ncb, int b) {
+    float* __restrict__ p_out, int B, int k, int ncb, int b, bool has_prior,
+    float prior) {
   const int lane = threadIdx.x % 32;
   const bool in = lane < k;
   float logit = -INFINITY, qp = 0.f;
@@ -366,17 +383,13 @@ __device__ __forceinline__ void filter_row(
 #pragma unroll 16
     for (int j = 0; j < ncb; ++j)
       sum += __ldcg(plog + ((size_t)j * B + b) * k + lane);
-    qp = q_prev[(size_t)b * k + lane];
+    if (!has_prior) qp = q_prev[(size_t)b * k + lane];
     logit = sum + b2_s[lane];
   }
   const float m = warp_max(logit);
   const float e = in ? expf(logit - m) : 0.f;
   const float p = e / warp_sum(e);
-  float prior = 0.f;
-  for (int j = 0; j < k; ++j) {
-    const float qj = __shfl_sync(0xffffffffu, qp, j);
-    if (in) prior = fmaf(qj, t_s[lane * k + j], prior);
-  }
+  if (!has_prior) prior = prior_of(qp, t_s, k);
   const float post = prior * p;
   const float z = warp_sum(post);
   if (in) {
@@ -385,11 +398,11 @@ __device__ __forceinline__ void filter_row(
   }
 }
 
-// grid (cluster, ceil(hid/32)), clusters of (cluster, 1, 1), kThreads
-// threads, smem_bytes(RT, ceil(dslice/128)) of dynamic shared memory.
-// map: w1 as a 2D tensor map (hid, d) with 32 x 128 boxes (used where hid
-// % 4 == 0). ticket: one zeroed counter; plog: (ceil(hid/32), B, k)
-// partial logits.
+// grid (cluster, clusters), clusters of (cluster, 1, 1), kThreads threads,
+// smem_bytes(RT, ceil(dslice/128)) of dynamic shared memory, a
+// cooperative launch. map: w1 as a 2D tensor map (hid, d) with 32 x 128
+// boxes (used where hid % 4 == 0). plog: (ceil(hid/32), B, k) partial
+// logits.
 template <typename T, int RT>
 __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
     const __grid_constant__ CUtensorMap map, const T* __restrict__ tap,
@@ -397,14 +410,13 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
     const float* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ q_prev, const float* __restrict__ Tm,
     float* __restrict__ q_new, float* __restrict__ p_out,
-    unsigned* __restrict__ ticket, float* __restrict__ plog, int B, int d,
-    int hid, int k, int dslice, int npass) {
+    float* __restrict__ plog, int B, int d, int hid, int k, int dslice,
+    int npass) {
   using M = Map<RT>;
   using Tap = TapBatch<T, RT>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int cs = gridDim.x, rank = blockIdx.x;    // cluster = grid x
-  const int cb = blockIdx.y, j0 = cb * kCols, ncb = gridDim.y;
-  const int ncols = min(kCols, hid - j0);
+  const int ncb = (hid + kCols - 1) / kCols;
   const int stages = (dslice + kStageRows - 1) / kStageRows;
   float* w_s = reinterpret_cast<float*>(smem);
   float* tap_s = w_s + stages * kStageRows * kCols;
@@ -415,7 +427,6 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
   float* t_s = b1_s + kCols;                     // k x k
   float* b2_s = t_s + kMaxBins * kMaxBins;       // k
   uint64_t* bar_s = reinterpret_cast<uint64_t*>(b2_s + kMaxBins);
-  int* flag_s = reinterpret_cast<int*>(bar_s + stages);
   const uint32_t bar0 = tc::smem_u32(bar_s);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int cg = lane % kColGroups, slot = lane / kColGroups;
@@ -426,6 +437,12 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
   auto slice_rows = [&](int p, int& d0) {
     d0 = (p * cs + rank) * dslice;
     return max(0, min(dslice, d - d0));
+  };
+  // a column block's rows of w2 and b1 (waited for after the FMAs)
+  auto stage_w2 = [&](int j0, int ncols) {
+    for (int i = tid; i < ncols * k; i += kThreads)
+      cp_async4z(tc::smem_u32(w2_s + i), w2 + (size_t)j0 * k + i, 4);
+    if (tid < ncols) cp_async4z(tc::smem_u32(b1_s + tid), b1 + j0 + tid, 4);
   };
 
   // the first tap batch, then the w1 boxes, are in flight before anything
@@ -447,141 +464,149 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
     }
     __syncwarp();
     if (tma) load_tile(&map, true, w1, w_s, bar0, stages, d0_first,
-                       rows_first, hid, j0);
+                       rows_first, hid, kCols * blockIdx.y);
   }
-  // the cluster's rows of w2 and b1, T and b2 (waited for after the FMAs)
-  for (int i = tid; i < ncols * k; i += kThreads)
-    cp_async4z(tc::smem_u32(w2_s + i), w2 + (size_t)j0 * k + i, 4);
+  // the row this warp filters after the grid barrier: its previous
+  // posterior is read now, its prior formed while the cluster meets
+  const int my_row = (blockIdx.y * cs + rank) * kWarps + warp;
+  const bool own_row = my_row < B && lane < k;
+  const float my_qp = own_row ? q_prev[(size_t)my_row * k + lane] : 0.f;
+  float my_prior = 0.f;
+  stage_w2(kCols * blockIdx.y, min(kCols, hid - kCols * (int)blockIdx.y));
   for (int i = tid; i < k * k; i += kThreads)
     cp_async4z(tc::smem_u32(t_s + i), Tm + i, 4);
-  if (tid < ncols) cp_async4z(tc::smem_u32(b1_s + tid), b1 + j0 + tid, 4);
   if (tid < k) cp_async4z(tc::smem_u32(b2_s + tid), b2 + tid, 4);
   if (!tma) {           // every thread arrives: the barriers first
     __syncthreads();
     load_tile(&map, false, w1, w_s, bar0, stages, d0_first, rows_first,
-              hid, j0);
+              hid, kCols * blockIdx.y);
   }
   STAMP(kIssued);
 
   int loads = 1;
   const int nrt = (B + RT - 1) / RT;
-  for (int rt = 0; rt < nrt; ++rt) {
-    const int r0 = rt * RT, nrows = min(RT, B - r0);
-    float acc[4][4];
+  for (int cb = blockIdx.y; cb < ncb; cb += gridDim.y) {
+    const bool first_cb = cb == (int)blockIdx.y;
+    const int j0 = cb * kCols, ncols = min(kCols, hid - j0);
+    for (int rt = 0; rt < nrt; ++rt) {
+      const int r0 = rt * RT, nrows = min(RT, B - r0);
+      float acc[4][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    for (int p = 0; p < npass; ++p) {
-      int d0;
-      const int rows = slice_rows(p, d0);
-      const int nst = (rows + kStageRows - 1) / kStageRows;
-      const int nel = nst * kStageRows * RT;
-      if (rt > 0 || p > 0) {
-        tb.load(vec, tap, 0, nel, d, r0, nrows, d0, rows);
-        if (npass > 1) {              // reload: nobody reads the old tile
-          __syncthreads();
-          load_tile(&map, tma, w1, w_s, bar0, stages, d0, rows, hid, j0);
-          ++loads;
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+      for (int p = 0; p < npass; ++p) {
+        int d0;
+        const int rows = slice_rows(p, d0);
+        const int nst = (rows + kStageRows - 1) / kStageRows;
+        const int nel = nst * kStageRows * RT;
+        if (!first_cb || rt > 0 || p > 0) {
+          tb.load(vec, tap, 0, nel, d, r0, nrows, d0, rows);
+          // a new slice or column block: nobody reads the old tile (nor,
+          // for a new block, the old rows of w2 and b1)
+          if (npass > 1 || rt == 0) {
+            __syncthreads();
+            load_tile(&map, tma, w1, w_s, bar0, stages, d0, rows, hid, j0);
+            ++loads;
+            if (rt == 0 && p == 0) stage_w2(j0, ncols);
+          }
+        }
+        tb.store(vec, tap_s, 0, nel);
+        for (int base = Tap::step(vec); base < nel;
+             base += Tap::step(vec)) {
+          tb.load(vec, tap, base, nel, d, r0, nrows, d0, rows);
+          tb.store(vec, tap_s, base, nel);
+        }
+        __syncthreads();
+        if (first_cb && rt == 0 && p == 0) STAMP(kStaged);
+        // each stage as it lands, kRows rows a thread
+        const uint32_t parity = (loads - 1) & 1;
+        const float4* w4 = reinterpret_cast<const float4*>(w_s) + cg;
+        const float4* t4 = reinterpret_cast<const float4*>(tap_s) + rg;
+        for (int s = 0; s < nst; ++s) {
+          tc::mbar_wait(bar0 + 8 * s, parity);
+#pragma unroll
+          for (int i = 0; i < M::kRows; ++i) {
+            const int row = s * kStageRows + dgrp + i * M::kDG;
+            row_fma(acc, w4[row * kColGroups], t4[row * M::kRG]);
+          }
         }
       }
-      tb.store(vec, tap_s, 0, nel);
-      for (int base = Tap::step(vec); base < nel; base += Tap::step(vec)) {
-        tb.load(vec, tap, base, nel, d, r0, nrows, d0, rows);
-        tb.store(vec, tap_s, base, nel);
-      }
+      const bool first = first_cb && rt == 0;
+      if (first) STAMP(kStreamed);
+      // the CTA's partial h: a warp's d groups (lanes 8 apart) by
+      // shuffles, then the warps in order
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float v = acc[r][c];
+          if (M::kSD > 1) v += __shfl_xor_sync(0xffffffffu, v, 8);
+          if (M::kSD > 2) v += __shfl_xor_sync(0xffffffffu, v, 16);
+          acc[r][c] = v;
+        }
+      if (slot % M::kSD == 0)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          *reinterpret_cast<float4*>(red_s + (warp * RT + 4 * rg + e) *
+                                     kCols + 4 * cg) =
+              make_float4(acc[e][0], acc[e][1], acc[e][2], acc[e][3]);
+      tc::cp_async_wait_all();        // w2_s, b1_s, t_s, b2_s have landed
       __syncthreads();
-      if (rt == 0 && p == 0) STAMP(kStaged);
-      // each stage as it lands, kRows rows a thread
-      const uint32_t parity = (loads - 1) & 1;
-      const float4* w4 = reinterpret_cast<const float4*>(w_s) + cg;
-      const float4* t4 = reinterpret_cast<const float4*>(tap_s) + rg;
-      for (int s = 0; s < nst; ++s) {
-        tc::mbar_wait(bar0 + 8 * s, parity);
+      // the CTA's partial h of row r goes to the CTA that owns the row (r
+      // % cluster), into its slot for this rank; a barrier of the
+      // cluster, and each CTA sums its rows' slots in rank order, adds
+      // b1, applies ReLU
+      cluster_wait();    // every CTA has started, or read its slots
+      for (int idx = tid; idx < nrows * kCols; idx += kThreads) {
+        float v[kWarps];
 #pragma unroll
-        for (int i = 0; i < M::kRows; ++i) {
-          const int row = s * kStageRows + dgrp + i * M::kDG;
-          row_fma(acc, w4[row * kColGroups], t4[row * M::kRG]);
-        }
+        for (int w = 0; w < kWarps; ++w) v[w] = red_s[w * RT * kCols + idx];
+        const float sum = ((v[0] + v[1]) + (v[2] + v[3])) +
+                          ((v[4] + v[5]) + (v[6] + v[7]));
+        const int r = idx / kCols;
+        st_cluster(map_rank(tc::smem_u32(recv + rank * RT * kCols + idx),
+                            r % cs),
+                   sum);
       }
-    }
-    if (rt == 0) STAMP(kStreamed);
-    // the CTA's partial h: a warp's d groups (lanes 8 apart) by shuffles,
-    // then the warps in order
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float v = acc[r][c];
-        if (M::kSD > 1) v += __shfl_xor_sync(0xffffffffu, v, 8);
-        if (M::kSD > 2) v += __shfl_xor_sync(0xffffffffu, v, 16);
-        acc[r][c] = v;
+      cluster_arrive();
+      if (first) my_prior = prior_of(my_qp, t_s, k);
+      cluster_wait();
+      if (first) STAMP(kClustered);
+      const int mine = rank < nrows ? (nrows - rank + cs - 1) / cs : 0;
+      for (int idx = tid; idx < mine * kCols; idx += kThreads) {
+        const int r = rank + cs * (idx / kCols), col = idx % kCols;
+        float sum = 0.f;
+        for (int q = 0; q < cs; ++q) sum += recv[(q * RT + r) * kCols + col];
+        red_s[idx] = col < ncols ? fmaxf(sum + b1_s[col], 0.f) : 0.f;
       }
-    if (slot % M::kSD == 0)
+      // read: the next tile may push
+      if (rt + 1 < nrt || cb + (int)gridDim.y < ncb) cluster_arrive();
+      __syncthreads();
+      // the rows' k partial logits of the 32 columns (four interleaved
+      // sums, added in a fixed order)
+      for (int idx = tid; idx < mine * k; idx += kThreads) {
+        const int i = idx / k, c = idx % k;
+        const float* h = red_s + i * kCols;
+        float lg[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        *reinterpret_cast<float4*>(red_s + (warp * RT + 4 * rg + e) * kCols +
-                                   4 * cg) =
-            make_float4(acc[e][0], acc[e][1], acc[e][2], acc[e][3]);
-    tc::cp_async_wait_all();          // w2_s, b1_s, t_s, b2_s have landed
-    __syncthreads();
-    // the CTA's partial h of row r goes to the CTA that owns the row (r %
-    // cluster), into its slot for this rank; a barrier of the cluster, and
-    // each CTA sums its rows' slots in rank order, adds b1, applies ReLU
-    cluster_wait();      // every CTA has started, or read its slots
-    for (int idx = tid; idx < nrows * kCols; idx += kThreads) {
-      float v[kWarps];
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v[w] = red_s[w * RT * kCols + idx];
-      const float sum = ((v[0] + v[1]) + (v[2] + v[3])) +
-                        ((v[4] + v[5]) + (v[6] + v[7]));
-      const int r = idx / kCols;
-      st_cluster(map_rank(tc::smem_u32(recv + rank * RT * kCols + idx),
-                          r % cs),
-                 sum);
+        for (int j = 0; j < kCols; ++j)
+          if (j < ncols) lg[j % 4] = fmaf(h[j], w2_s[j * k + c], lg[j % 4]);
+        plog[((size_t)cb * B + r0 + rank + cs * i) * k + c] =
+            (lg[0] + lg[1]) + (lg[2] + lg[3]);
+      }
+      if (first) STAMP(kLogits);
     }
-    cluster_arrive();
-    cluster_wait();
-    if (rt == 0) STAMP(kClustered);
-    const int mine = rank < nrows ? (nrows - rank + cs - 1) / cs : 0;
-    for (int idx = tid; idx < mine * kCols; idx += kThreads) {
-      const int r = rank + cs * (idx / kCols), col = idx % kCols;
-      float sum = 0.f;
-      for (int q = 0; q < cs; ++q) sum += recv[(q * RT + r) * kCols + col];
-      red_s[idx] = col < ncols ? fmaxf(sum + b1_s[col], 0.f) : 0.f;
-    }
-    if (rt + 1 < nrt) cluster_arrive();   // read: the next tile may push
-    __syncthreads();
-    // the rows' k partial logits of the 32 columns (four interleaved
-    // sums, added in a fixed order)
-    for (int idx = tid; idx < mine * k; idx += kThreads) {
-      const int i = idx / k, c = idx % k;
-      const float* h = red_s + i * kCols;
-      float lg[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        if (j < ncols) lg[j % 4] = fmaf(h[j], w2_s[j * k + c], lg[j % 4]);
-      plog[((size_t)cb * B + r0 + rank + cs * i) * k + c] =
-          (lg[0] + lg[1]) + (lg[2] + lg[3]);
-    }
-    if (rt == 0) STAMP(kLogits);
   }
 
-  // the partial logits meet by a ticket: the last CTA to take one filters
-  // every row (the barrier orders the CTA's writes before thread 0's
-  // fence)
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    const bool last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
-    if (last) __threadfence();
-    flag_s[0] = last;
-  }
-  __syncthreads();
-  STAMP(kTicket);
-  if (!flag_s[0]) return;
-  for (int b = warp; b < B; b += kWarps)
-    filter_row(plog, q_prev, b2_s, t_s, q_new, p_out, B, k, ncb, b);
+  // the partial logits meet at a grid barrier, after which every warp of
+  // the grid may filter a row
+  cg::this_grid().sync();
+  STAMP(kGridSynced);
+  const int step = kWarps * cs * gridDim.y;
+  for (int b = my_row; b < B; b += step)
+    filter_row(plog, q_prev, b2_s, t_s, q_new, p_out, B, k, ncb, b,
+               b == my_row, my_prior);
 #ifdef PROBE_STAMPS
   __syncthreads();
   STAMP(kFiltered);
@@ -628,8 +653,11 @@ bool w1_map(CUtensorMap* map, const void* w1, int d, int hid) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A launch of grid `grid` in clusters of (cluster, 1, 1), cooperative
+// (the whole grid resident at once, so that it may meet at a grid
+// barrier) where `cooperative`; attr holds two attributes.
 cudaLaunchConfig_t cluster_config(dim3 grid, int cluster, size_t smem,
-                                  cudaStream_t stream,
+                                  cudaStream_t stream, bool cooperative,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -640,8 +668,10 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int cluster, size_t smem,
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cooperative ? 2 : 1;
   return cfg;
 }
 
@@ -649,8 +679,8 @@ template <typename T, int RT>
 cudaError_t launch(const void* tap, const void* w1, const void* b1,
                    const void* w2, const void* b2, const void* q_prev,
                    const void* Tm, void* q_new, void* p, void* scratch, int B,
-                   int d, int hid, int k, int cluster, int dslice, int npass,
-                   cudaStream_t stream) {
+                   int d, int hid, int k, int cluster, int clusters,
+                   int dslice, int npass, cudaStream_t stream) {
   auto kernel = probe_update_kernel<T, RT>;
   const size_t smem =
       smem_bytes(RT, (dslice + kStageRows - 1) / kStageRows);
@@ -665,45 +695,45 @@ cudaError_t launch(const void* tap, const void* w1, const void* b1,
   CUtensorMap map = {};
   if (hid % 4 == 0 && !w1_map(&map, w1, d, hid))
     return cudaErrorInvalidValue;
-  unsigned* ticket = static_cast<unsigned*>(scratch);
-  cudaError_t e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), stream);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = cluster_config(
-      dim3(cluster, (hid + kCols - 1) / kCols, 1), cluster, smem, stream,
-      attr);
-  e = cudaLaunchKernelEx(
+      dim3(cluster, clusters, 1), cluster, smem, stream, true, attr);
+  const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, map, static_cast<const T*>(tap),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(q_prev), static_cast<const float*>(Tm),
-      static_cast<float*>(q_new), static_cast<float*>(p), ticket,
-      static_cast<float*>(scratch) + 4, B, d, hid, k, dslice, npass);
+      static_cast<float*>(q_new), static_cast<float*>(p),
+      static_cast<float*>(scratch), B, d, hid, k, dslice, npass);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype (of the tap): 0 = float32, 1 = bfloat16. The plan (probe.py
-// plan()): row_tile 4 or 16, cluster <= 8 CTAs, dslice rows a slice,
-// npass slices a CTA (cluster * npass * dslice >= d). scratch: 4 + (hid /
-// 32 rounded up) * B * k floats, the ticket first.
+// plan()): row_tile 4 or 16, clusters (at most one a column block, no
+// more than the card holds at once) of cluster <= 8 CTAs, dslice rows a
+// slice, npass slices a CTA (cluster * npass * dslice >= d). scratch:
+// (hid / 32 rounded up) * B * k floats. A grid the card cannot hold at
+// once is refused (cudaErrorCooperativeLaunchTooLarge).
 extern "C" int probe_update_launch(const void* tap, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* b2, const void* q_prev,
                                    const void* T, void* q_new, void* p,
                                    void* scratch, int dtype, int B, int d,
                                    int hid, int k, int row_tile, int cluster,
-                                   int dslice, int npass, void* stream) {
+                                   int clusters, int dslice, int npass,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || d < 1 || hid < 1 || k < 1 || k > kMaxBins || cluster < 1 ||
-      cluster > kMaxCluster || dslice < 1 || npass < 1 ||
+      cluster > kMaxCluster || clusters < 1 ||
+      clusters > (hid + kCols - 1) / kCols || dslice < 1 || npass < 1 ||
       (long long)cluster * npass * dslice < d)
     return (int)cudaErrorInvalidValue;
 #define PROBE_LAUNCH(TYPE, RT)                                               \
   return (int)launch<TYPE, RT>(tap, w1, b1, w2, b2, q_prev, T, q_new, p,   \
-                               scratch, B, d, hid, k, cluster, dslice,     \
-                               npass, s)
+                               scratch, B, d, hid, k, cluster, clusters,   \
+                               dslice, npass, s)
   if (dtype == 0 && row_tile == 4) PROBE_LAUNCH(float, 4);
   if (dtype == 0 && row_tile == 16) PROBE_LAUNCH(float, 16);
   if (dtype == 1 && row_tile == 4) PROBE_LAUNCH(__nv_bfloat16, 4);
@@ -713,13 +743,13 @@ extern "C" int probe_update_launch(const void* tap, const void* w1,
 }
 
 // The launch floor on the probe's grid and clusters with `smem` bytes of
-// dynamic shared memory, as a call launches it: the ticket's memset, then
-// an empty kernel.
-extern "C" int probe_floor_launch(int cluster, int col_blocks, int smem,
-                                  void* ticket, void* stream) {
+// dynamic shared memory, launched as a call is (cooperative): an empty
+// kernel.
+extern "C" int probe_floor_launch(int cluster, int clusters, int smem,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cluster < 1 || cluster > kMaxCluster || col_blocks < 1 || smem < 0 ||
-      (size_t)smem > kMaxSmem || ticket == nullptr)
+  if (cluster < 1 || cluster > kMaxCluster || clusters < 1 || smem < 0 ||
+      (size_t)smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   static bool sized = false;
   if (!sized) {
@@ -729,12 +759,10 @@ extern "C" int probe_floor_launch(int cluster, int col_blocks, int smem,
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  cudaError_t e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(dim3(cluster, col_blocks, 1), cluster, smem, s, attr);
-  e = cudaLaunchKernelEx(&cfg, probe_floor_kernel);
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(cluster, clusters, 1), cluster, smem, s, true, attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, probe_floor_kernel);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -745,9 +773,9 @@ extern "C" int probe_active_clusters(int* out) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   for (int c = 1; c <= kMaxCluster && e == cudaSuccess; ++c) {
-    cudaLaunchAttribute attr[1];
+    cudaLaunchAttribute attr[2];
     const cudaLaunchConfig_t cfg =
-        cluster_config(dim3(c, 1, 1), c, kOnePerSm, nullptr, attr);
+        cluster_config(dim3(c, 1, 1), c, kOnePerSm, nullptr, false, attr);
     e = cudaOccupancyMaxActiveClusters(out + c - 1, kernel, &cfg);
   }
   return (int)e;

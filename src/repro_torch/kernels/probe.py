@@ -29,7 +29,6 @@ MIN_ROWS = 32             # the fewest d rows a CTA of a cluster takes
 WARPS = 8                 # warps of a CTA
 MAX_BINS = 32             # the most bins (k) a call takes
 ONE_PER_SM = 120 * 1024   # shared memory that keeps a CTA alone on its SM
-TICKET = 4                # scratch floats before the partial logits
 ALIGN = 8                 # slice rows come in 16-byte tap chunks
 _lib = None
 
@@ -39,20 +38,22 @@ def _library():
     if _lib is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         _lib = build.bind("probe", {
-            "probe_update_launch": [ptr] * 10 + [i32] * 9 + [ptr],
+            "probe_update_launch": [ptr] * 10 + [i32] * 10 + [ptr],
             "probe_active_clusters": [ptr]})
     return _lib
 
 
 class Plan(NamedTuple):
     """How one call is cut (``plan``): row tiles of ``row_tile`` tap rows;
-    ``col_blocks`` clusters of ``cluster`` CTAs, one per block of 32 hid
-    columns; CTA ``q`` of a cluster takes the d slices ``p * cluster +
-    q`` for ``p < npass``, slice ``s`` being rows ``[s * dslice, (s + 1)
-    * dslice)`` cut at d; ``smem`` bytes of shared memory a CTA;
-    ``scratch`` floats (the ticket, then the partial logits)."""
+    ``col_blocks`` blocks of 32 hid columns, taken by ``clusters``
+    clusters of ``cluster`` CTAs (cluster ``c`` takes blocks ``c, c +
+    clusters, ...``); CTA ``q`` of a cluster takes the d slices ``p *
+    cluster + q`` for ``p < npass``, slice ``s`` being rows ``[s *
+    dslice, (s + 1) * dslice)`` cut at d; ``smem`` bytes of shared memory
+    a CTA; ``scratch`` floats of partial logits."""
     row_tile: int
     cluster: int
+    clusters: int
     dslice: int
     npass: int
     col_blocks: int
@@ -64,11 +65,11 @@ def smem_bytes(row_tile: int, dslice: int) -> int:
     """A CTA's shared memory (``probe.cu`` ``smem_bytes``): per stage of 128
     rows the w1 rows, the tap rows and an mbarrier; the warps' partial
     sums, the partial h received from the cluster, the cluster's rows of
-    w2 and b1, T and b2, and a flag; at least ONE_PER_SM."""
+    w2 and b1, T and b2; at least ONE_PER_SM."""
     stages = -(-dslice // STAGE_ROWS)
     n = (stages * (STAGE_ROWS * COLS * 4 + STAGE_ROWS * row_tile * 4 + 8)
          + row_tile * COLS * 4 * (WARPS + MAX_CLUSTER)
-         + COLS * (MAX_BINS + 1) * 4 + MAX_BINS * (MAX_BINS + 1) * 4 + 16)
+         + COLS * (MAX_BINS + 1) * 4 + MAX_BINS * (MAX_BINS + 1) * 4)
     return max(n, ONE_PER_SM)
 
 
@@ -76,11 +77,14 @@ def smem_bytes(row_tile: int, dslice: int) -> int:
 def plan(B: int, d: int, hid: int, k: int, active: tuple[int, ...]) -> Plan:
     """Cut a call so that one wave of CTAs, one an SM, streams w1 once:
     the largest cluster (up to 8 CTAs over d, at least 32 rows a slice)
-    of which the card holds the hid / 32 column blocks at once
+    of which the card holds one a column block of 32 hid columns at once
     (``active[c - 1]`` clusters of c CTAs, ``active_clusters``), each
     CTA's tile resident in its shared memory; where d is too long for
     that, each CTA takes npass slices in turn. Slices are whole 8-row
-    chunks where d allows, so the tap loads 16 bytes at a time."""
+    chunks where d allows, so the tap loads 16 bytes at a time. The grid
+    never holds more clusters than the card does at once (the launch is
+    cooperative); where there are more column blocks, a cluster takes
+    several in turn."""
     row_tile = 16 if B > 4 else 4
     col_blocks = -(-hid // COLS)
     cluster = max([c for c, n in enumerate(active[:MAX_CLUSTER], 1)
@@ -95,8 +99,9 @@ def plan(B: int, d: int, hid: int, k: int, active: tuple[int, ...]) -> Plan:
         dslice = -(-dslice // ALIGN) * ALIGN
     if npass == 1:
         cluster = -(-d // dslice)           # no empty slice
-    return Plan(row_tile, cluster, dslice, npass, col_blocks,
-                smem_bytes(row_tile, dslice), TICKET + col_blocks * B * k)
+    return Plan(row_tile, cluster, min(col_blocks, active[cluster - 1]),
+                dslice, npass, col_blocks, smem_bytes(row_tile, dslice),
+                col_blocks * B * k)
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,7 +156,8 @@ def probe_update(tap, w1, b1, w2, b2, q_prev, T):
         tap.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), q_prev.data_ptr(), T.data_ptr(), q_new.data_ptr(),
         p.data_ptr(), buf[2 * n:].data_ptr(), build.DTYPE_CODE[tap.dtype], B,
-        d, hid, k, pl.row_tile, pl.cluster, pl.dslice, pl.npass, stream)
+        d, hid, k, pl.row_tile, pl.cluster, pl.clusters, pl.dslice,
+        pl.npass, stream)
     build.raise_on(err, "probe_update")
     build.launches["probe_update"] += 1
     return q_new, p

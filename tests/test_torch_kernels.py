@@ -537,8 +537,8 @@ PLAN_SHAPES = [  # B, d, hid, k
 def test_probe_plan(B, d, hid, k, active):
     """The plan covers every d row and every hid column exactly once,
     fits a CTA's shared memory, keeps to portable clusters, sizes the
-    scratch for what the kernel writes, keeps to one wave of clusters the
-    card holds at once where one cluster a column block fits, and cuts
+    scratch for what the kernel writes, launches no more clusters than
+    the card holds at once (one a column block where they fit), and cuts
     gemma2-9b's call into 16 clusters of 6 CTAs on an H100 (of 5 on a
     card that holds only 12 clusters of 6)."""
     from repro_torch.kernels import probe
@@ -549,17 +549,21 @@ def test_probe_plan(B, d, hid, k, active):
     assert (rows == 1).all()
     assert pl.cluster * pl.npass * pl.dslice - d < pl.dslice
     cols = np.zeros(hid, np.int64)
-    for cb in range(pl.col_blocks):
-        cols[probe.COLS * cb:probe.COLS * (cb + 1)] += 1
+    for c in range(pl.clusters):        # cluster c's column blocks
+        for cb in range(c, pl.col_blocks, pl.clusters):
+            cols[probe.COLS * cb:probe.COLS * (cb + 1)] += 1
     assert (cols == 1).all()
     assert pl.smem == probe.smem_bytes(pl.row_tile, pl.dslice)
     assert pl.smem <= probe.MAX_SMEM
     assert 1 <= pl.cluster <= probe.MAX_CLUSTER
     assert pl.row_tile == (4 if B <= 4 else 16)
-    assert pl.scratch >= probe.TICKET + pl.col_blocks * B * k
+    assert pl.scratch >= pl.col_blocks * B * k
     assert pl.smem >= probe.ONE_PER_SM  # one CTA an SM
-    if active[0] >= pl.col_blocks:      # one wave of clusters
-        assert active[pl.cluster - 1] >= pl.col_blocks
+    # a cooperative launch: never more clusters than the card holds at
+    # once; one a column block where they fit, then in one wave
+    assert pl.clusters == min(pl.col_blocks, active[pl.cluster - 1])
+    if active[0] >= pl.col_blocks:
+        assert pl.clusters == pl.col_blocks
     else:
         assert pl.cluster == 1
     if d % probe.ALIGN == 0:            # 16-byte tap loads
@@ -604,7 +608,7 @@ def test_cuda_decode_attention_matches_plain(H, KH, hd, M, win, dtype):
     (16, 3584, 512, 1, "float32", False),
     (16, 3584, 512, 32, "bfloat16", True),
     (17, 20000, 64, 10, "float32", False),      # npass > 1
-    (6, 1600, 8192, 10, "bfloat16", True),      # 256 CTAs: the ticket
+    (6, 1600, 8192, 10, "bfloat16", True),      # 256 blocks, 132 clusters
     (3, 64, 16, 5, "float32", False),           # w1 smaller than a box
 ])
 def test_cuda_probe_update_matches_plain(B, d, hid, k, tap_dtype, fallback):
