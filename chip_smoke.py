@@ -41,7 +41,8 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    ``granite-3-8b`` (4096) and ``trail-llama`` (768), at d 200 and 201
    (the tap read element by element), hid 48 and 50 (4-byte copies in
    place of TMA), k 1 and 32, d 20000 (three slices a CTA) and hid 8192
-   (256 CTAs: the ticket in place of the grid barrier), each with a row
+   (256 column blocks on the 132 clusters of one CTA the card holds at
+   once, two blocks a cluster), each with a row
    whose posterior sums to 0 (the prior fallback; not with one bin), two
    calls on the same inputs bit-equal and calls in flight on two streams
    equal to one call; ``ssd_scan`` at
@@ -69,11 +70,10 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    PyTorch library call computing the same function as a yardstick
    (``scaled_dot_product_attention`` with the same mask; none exists for
    ``probe_update``, whose w1 fits in L2, so it is timed with L2 flushed
-   before every call, at 16 rows and 1, beside the launch floor on its
-   grid, clusters and shared memory (an empty kernel, the ticket's memset
-   and the empty kernel, a cooperative launch meeting at a grid barrier)
-   and the card's count of clusters it holds at once against the plan's
-   table; nor for ``ssd_scan``); the single-query decode
+   before every call, at 16 rows and 1, beside the launch floor (an
+   empty kernel launched as the call is: cooperative, on its grid,
+   clusters and shared memory) and the clusters the card holds at once,
+   which the plan reads; nor for ``ssd_scan``); the single-query decode
    kernels and their library call as CUDA graphs of 30 calls (at the
    serves' shapes a call takes less device time than its wrapper takes
    on the host), also at the shapes the serves launch most: the gemma2-9b
