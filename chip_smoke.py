@@ -147,6 +147,24 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     attention beside the SSM), two prompts past the window so the rings
     wrap: ``ssd_scan`` 32 times per prefill chunk, ``decode_attention``
     32 times per decode step.
+17. train the SSM stacks on the card through ``models.ssm.SSDScan``
+    (the ``ssd_scan`` kernel forward, the plain version's backward):
+    ``mamba2-smoke`` and ``hymba-smoke`` in float32, ``forward_train``
+    loss and every parameter's gradient against the CPU on the same
+    masters (1e-5 relative; 1e-5 plus 1e-4 of the leaf's largest), with
+    ``ssd_scan`` (and hymba's ``flash_attention``) launched; then
+    ``mamba2-370m`` at full width and depth for ``SSM_TRAIN_STEPS`` steps
+    of 8 x 512 through ``launch.train.main``: the last logged loss below
+    0.7 x the first, ``ssd_scan`` twice a layer a step (forward and remat
+    recompute); then profile one such train step and time one layer's
+    ``SSDScan`` there, the kernel forward against the plain backward;
+18. serve through the entry point, ``repro_torch.launch.serve.main``, in
+    process (``SERVE_CLI_RUNS``): ``granite-3-8b --real --n 12`` under
+    the contiguous layout (``decode_attention``) writing
+    ``--metrics-out`` (it must parse, and the run's event log must pass
+    ``check_invariants``), the same under ``--kv-layout paged`` (both
+    paged kernels), and ``mamba2-370m --real --n 12`` (``ssd_scan``):
+    12 of 12 finished each, the host wall of each run printed.
 
 Every kernel launch count is set to 0 just before a path is driven and
 read just after it; launches made to compare a kernel with its plain
@@ -189,6 +207,7 @@ PAGED_ARGS = ("q", "k_pages", "v_pages", "kpos_pages", "block_table", "q_pos")
 SLOT_ARGS = ("q", "k", "v", "kpos", "q_pos")
 TRAIN_STEPS = 40                    # trail-llama steps of 8 x 512 tokens
 PROBE_EPOCHS = 8                    # the paper's 30, cut for time
+SSM_TRAIN_STEPS = 40                # mamba2-370m steps of 8 x 512 tokens
 
 
 def log(*args):
@@ -2238,6 +2257,221 @@ def phase_serve_ssm(torch, arch, long_prompts):
     return launches
 
 
+def phase_train_ssm(torch):
+    """SSM training on the card, through ``models.ssm.SSDScan`` (the
+    ``ssd_scan`` kernel forward, the plain version's backward).
+
+    (a) ``mamba2-smoke`` and ``hymba-smoke`` in float32: one
+    ``forward_train`` with the gradient of every parameter on the card and
+    on the CPU from the same masters; loss within 1e-5 relative, each
+    gradient within 1e-5 plus 1e-4 of its leaf's largest (the tolerance of
+    ``tests/test_torch_training.py``); ``ssd_scan`` (and for hymba
+    ``flash_attention``) launched in the card's run.
+    (b) ``mamba2-370m`` at full width and depth trained ``SSM_TRAIN_STEPS``
+    steps of 8 x 512 through ``launch.train.main``: the last logged loss
+    below 0.7 of the first, ``ssd_scan`` launched twice a layer a step
+    (the forward and the remat recompute). Returns (b)'s launches."""
+    from torch.func import functional_call
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.data import DataConfig, batches
+    for arch, kernels in (("mamba2-370m", ("ssd_scan",)),
+                          ("hymba-1.5b", ("ssd_scan", "flash_attention"))):
+        cfg, gpu, cpu = _model_pair(arch, seed=13)
+        dc = DataConfig(vocab=cfg.vocab_size, seq_len=64, batch=4,
+                        prompt_mean=8, max_out=32, seed=13)
+        batch = next(batches(dc, 1))
+        masters = {k: v.detach().clone().float()
+                   for k, v in cpu.state_dict().items()}
+        out = {}
+        for dev, m in (("cuda", gpu), ("cpu", cpu)):
+            live = {k: v.to(dev, copy=True).requires_grad_()
+                    for k, v in masters.items()}
+            tb = {k: torch.from_numpy(batch[k]).to(dev)
+                  for k in ("tokens", "labels")}
+            ops.reset_launches()
+            loss, _ = functional_call(m, live, (tb,))
+            grads = torch.autograd.grad(loss, list(live.values()),
+                                        allow_unused=True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(ops.launches)
+            out[dev] = (float(loss.detach()),
+                        [None if g is None else g.cpu() for g in grads])
+        (gl, gg), (cl, cg) = out["cuda"], out["cpu"]
+        worst, ok = 0.0, True
+        for name, a, b in zip(masters, gg, cg):
+            if (a is None) != (b is None):
+                fail(f"{cfg.name}: the gradient of {name} exists on one "
+                     f"device only")
+            if a is not None:
+                e = float((a - b).abs().max())
+                worst = max(worst, e)
+                ok &= e <= 1e-5 + 1e-4 * float(b.abs().max())
+        log(f"[train-ssm] {cfg.name} f32 4 x 64, card vs CPU: loss "
+            f"{gl:.6f} vs {cl:.6f}, gradients of {len(masters)} parameters "
+            f"within {worst:.2e} ({sum(g is None for g in gg)} without one: "
+            f"the probe); launches {launches}")
+        if not (abs(gl - cl) <= 1e-5 * abs(cl) and ok):
+            fail(f"{cfg.name}: the SSM training path on the card disagrees "
+                 f"with the CPU")
+        for name in kernels:
+            if launches[name] <= 0:
+                fail(f"{cfg.name}: {name} never launched in forward_train")
+        del gpu, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    args = ["--arch", "mamba2-370m", "--steps", str(SSM_TRAIN_STEPS),
+            "--batch", "8", "--seq", "512", "--device", "cuda"]
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        model, params, hist = launch_train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for line in printed.getvalue().splitlines():
+        log(f"[train-ssm]   {line}")
+    cfg = model.cfg
+    n_params = sum(v.numel() for v in params.values())
+    tokens = SSM_TRAIN_STEPS * 8 * 512
+    per_step = launches["ssd_scan"] / SSM_TRAIN_STEPS
+    log(f"[train-ssm] {cfg.name}: {cfg.num_layers} SSM layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.2f} B params (bf16 matmuls, "
+        f"AdamW float32 masters); {SSM_TRAIN_STEPS} steps of 8 x 512 in "
+        f"{wall:.3f} s (host clock, init included): "
+        f"{1e3 * wall / SSM_TRAIN_STEPS:.1f} ms per step, "
+        f"{tokens / wall:.0f} tokens/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; ssd_scan launches {launches['ssd_scan']} "
+        f"({per_step:g} per step: {cfg.num_layers} forward + "
+        f"{cfg.num_layers} remat recompute)")
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    log(f"[train-ssm] logged loss {first:.4f} (step 0) -> {last:.4f} (step "
+        f"{hist[-1]['step']}): {last / first:.3f} of the first")
+    if not last < 0.7 * first:
+        fail(f"{cfg.name}'s loss did not fall below 0.7 x its first: "
+             f"{first} -> {last}")
+    if launches["ssd_scan"] != 2 * cfg.num_layers * SSM_TRAIN_STEPS:
+        fail(f"ssd_scan launched {launches['ssd_scan']} times in "
+             f"{SSM_TRAIN_STEPS} steps, not {2 * cfg.num_layers} per step")
+
+    import numpy as np
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train import make_train_step
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=4,
+                           total_steps=SSM_TRAIN_STEPS)
+    step = make_train_step(model, ocfg)
+    state = opt.init(ocfg, params)
+    batch = next(batches(DataConfig(vocab=cfg.vocab_size, seq_len=512,
+                                    batch=8, max_out=448, seed=9), 1))
+    batch = {k: torch.from_numpy(np.asarray(batch[k])).to("cuda")
+             for k in ("tokens", "labels")}
+    _profile(torch, cfg.name, "train step 8 x 512",
+             lambda: step(params, state, batch))
+    del model, params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_train_split(torch, cfg)
+    return launches
+
+
+def ssd_train_split(torch, cfg):
+    """One layer's ``SSDScan`` at the train step's shape (bf16 x, B and C;
+    8 x 512; a zero initial state), CUDA events around 10 calls each: the
+    kernel forward against the plain version's backward, with the
+    gradients of every input taken as the train step takes them."""
+    from repro_torch.models.ssm import SSDScan, ssm_dims
+    _, nh, _ = ssm_dims(cfg)
+    hp, N, B, L = cfg.ssm_head_dim, cfg.ssm_groups * cfg.ssm_state, 8, 512
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    leaves = [draw(B, L, nh, hp).bfloat16(),
+              torch.nn.functional.softplus(draw(B, L, nh) - 2.0),
+              -torch.exp(draw(nh)), draw(B, L, N).bfloat16(),
+              draw(B, L, N).bfloat16()]
+    leaves = [t.requires_grad_() for t in leaves]
+    y, s = SSDScan.apply(*leaves, None, cfg.ssm_chunk)
+    dy, ds = torch.randn_like(y), torch.zeros_like(s)
+    fwd_ms = time_ms(torch, lambda: SSDScan.apply(*leaves, None,
+                                                  cfg.ssm_chunk), iters=10)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        (y, s), leaves, (dy, ds), retain_graph=True), iters=10)
+    log(f"[train-ssm] one layer's SSDScan at 8 x 512 ({nh} heads of {hp}, "
+        f"state {N}, chunk {cfg.ssm_chunk}, bf16): kernel forward "
+        f"{fwd_ms:.4f} ms, plain backward {bwd_ms:.4f} ms; a step's "
+        f"{cfg.num_layers} layers: forward and remat recompute "
+        f"{2 * cfg.num_layers * fwd_ms:.3f} ms, backward "
+        f"{cfg.num_layers * bwd_ms:.3f} ms of device time")
+
+
+SERVE_CLI_RUNS = (  # label, argv, kernels the run must launch
+    ("granite-3-8b contig",
+     ["--arch", "granite-3-8b", "--real", "--n", "12", "--seed", "0",
+      "--metrics-out", str(ROOT / "build" / "serve_cli_metrics.json")],
+     ("decode_attention",)),
+    ("granite-3-8b paged",
+     ["--arch", "granite-3-8b", "--real", "--n", "12", "--seed", "0",
+      "--kv-layout", "paged"],
+     ("paged_decode_attention", "paged_decode_attention_multi")),
+    ("mamba2-370m",
+     ["--arch", "mamba2-370m", "--real", "--n", "12", "--seed", "0"],
+     ("ssd_scan",)),
+)
+
+
+def phase_serve_cli(torch):
+    """The serving entry point, ``python -m repro_torch.launch.serve``'s
+    ``main``, in-process on the card at full width and depth: each run of
+    ``SERVE_CLI_RUNS`` must finish 12 of 12 requests and launch its
+    kernels; the first writes ``--metrics-out``, which must parse, and its
+    event log must pass ``check_invariants``. The JSON's latencies are the
+    cost model's (TPU v5e preset), so only the host wall is a card
+    number."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.metrics import check_invariants
+    (ROOT / "build").mkdir(exist_ok=True)
+    for label, argv, kernels in SERVE_CLI_RUNS:
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            stats, event_log = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        text = printed.getvalue()
+        summary = json.loads(text[:text.index("\n}") + 2])
+        log(f"[serve-cli] {label}: {len(stats.latencies)}/12 finished in "
+            f"{summary['iterations']} engine steps, wall {wall:.3f} s (host "
+            f"clock, model init included, ends in synchronize); launches "
+            f"{launches}")
+        if len(stats.latencies) != 12:
+            fail(f"serve CLI {label}: {len(stats.latencies)} of 12 finished")
+        for name in kernels:
+            if launches[name] <= 0:
+                fail(f"serve CLI {label}: {name} never launched")
+        if "--metrics-out" in argv:
+            path = Path(argv[argv.index("--metrics-out") + 1])
+            report = json.loads(path.read_text())
+            check_invariants(event_log)
+            log(f"[serve-cli] {label}: {path.name} parses "
+                f"({report['requests']['finished']} finished), "
+                f"{len(event_log)} events pass check_invariants")
+        del stats, event_log
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_serve_step(torch, cfg, model):
     """``make_serve_step`` for 8 steps after a 300-token prefill of 16 rows:
     each fused probe call against its plain version on the same tap."""
@@ -2412,6 +2646,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_ssm(torch, "hymba-1.5b", (1500, 2000))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_ssm(torch)
+    phase_serve_cli(torch)
 
     kernels = []
     for kname, label, source, replaces, launches in (

@@ -76,9 +76,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
 def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk):
     """Chunked SSD (Mamba-2) scan from ``init_state`` (None: zeros).
     x: (B,L,nh,hp); dt: (B,L,nh); A: (nh,); Bm/Cm: (B,L,N) -> (y
-    (B,L,nh,hp), final state (B,nh,hp,N)), both float32. The plain
-    version is differentiable; the kernel raises on an input that
-    requires a gradient."""
+    (B,L,nh,hp), final state (B,nh,hp,N)), both float32. The kernel
+    raises on an input that requires a gradient: ``models.ssm.SSDScan``
+    gives the scan its gradient."""
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, Bm, Cm, init_state, chunk=chunk)
     return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state, chunk=chunk)

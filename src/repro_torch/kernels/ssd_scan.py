@@ -7,7 +7,10 @@ checks its tensors, allocates the outputs with ``torch.empty``, launches on
 the current CUDA stream, raises if the launch was refused, and counts the
 launch in ``build.launches``. The library builds at the first launch (see
 ``build.py``). Shapes and semantics are those of ``ref.ssd_scan_ref``.
-There is no gradient: an input that requires one raises.
+The kernel has no backward: called directly with an input that requires
+a gradient, it raises. Training goes through ``models.ssm.SSDScan``,
+whose backward differentiates ``ref.ssd_scan_ref``, as the reference
+differentiates its plain ``ssd_chunked``.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk: int):
     if init_state is not None:
         ins["init_state"] = init_state
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins.values()):
-        raise NotImplementedError("ssd_scan has no gradient on the card yet")
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel; call it through "
+            "models.ssm.SSDScan for a gradient")
     build.check_on_card(x.device, **ins)
     if x.dtype not in build.DTYPE_CODE:
         raise TypeError(f"x dtype {x.dtype} not supported (float32, bfloat16)")

@@ -24,8 +24,9 @@ cache is updated in place and also returned. Global (``KIND_ATTN``),
 sliding-window (``KIND_LOCAL``), Mamba-2 (``KIND_SSM``) and hybrid
 (``KIND_HYBRID``) stacks are ported, with learned positions, so the gemma,
 mamba2 and hymba configs run; MoE layers, ``kv_quant``, cross-attention
-and prefix embeds raise ``NotImplementedError``. The SSM layers have no
-gradient on the card yet (their kernel raises when asked for one).
+and prefix embeds raise ``NotImplementedError``. The SSM layers' gradient
+comes from ``models.ssm.SSDScan``: the scan kernel runs forward, and the
+backward differentiates its plain version, on the card as on the CPU.
 
 ``params_from_jax`` and ``load_npz`` bring the reference package's weights
 across (as numpy arrays or from its ``.npz`` checkpoint format) without

@@ -1,9 +1,11 @@
 """Mamba-2 SSD (state-space duality) mixer. [arXiv:2405.21060]
 
-Prefill chunks and training forwards run the chunked SSD scan through
-``kernels.ops.ssd_scan`` (the CUDA kernel on the card, its plain version
-on the CPU); decode is the O(1) recurrent update in plain torch, as in the
-reference ``repro.models.ssm``, which has no kernel for it.
+Prefill chunks and training forwards run the chunked SSD scan through the
+``SSDScan`` Function: its forward is ``kernels.ops.ssd_scan`` (the CUDA
+kernel on the card, its plain version on the CPU), its backward
+differentiates the plain version. Decode is the O(1) recurrent update in
+plain torch, as in the reference ``repro.models.ssm``, which has no kernel
+for it.
 
 State of one layer, per row:
   ssm_state: (B, nh, hp, N) float32 — the running SSD state
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -81,6 +83,35 @@ def _gated_out(cfg: ModelConfig, p, y, z, out_dtype):
     return y.to(out_dtype) @ p.out_proj.to(out_dtype)
 
 
+class SSDScan(torch.autograd.Function):
+    """``ops.ssd_scan`` with a gradient.
+
+    The forward runs the kernel (on the card; the plain version on the
+    CPU) and saves its inputs. The reference has no backward kernel
+    (``jax.grad`` differentiates its plain ``ssd_chunked``), so the
+    backward recomputes the plain version, float32 inside, under autograd
+    and returns the gradients of x, dt, A, Bm, Cm and the initial state,
+    each in its input's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk: int):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk = chunk
+        return ops.ssd_scan(x, dt, A, Bm, Cm, init_state, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        ins = [None if t is None else t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in ins if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            outs = ref.ssd_scan_ref(*ins, chunk=ctx.chunk)
+        grads = iter(torch.autograd.grad(outs, wanted, (dy, ds)))
+        return (*(next(grads) if t is not None and t.requires_grad else None
+                  for t in ins), None)
+
+
 def ssm_forward(cfg: ModelConfig, p, h, state=None, conv_buf=None,
                 q_pos=None):
     """Full-sequence or chunk forward. h: (B,L,d); state (B,nh,hp,N) and
@@ -109,9 +140,8 @@ def ssm_forward(cfg: ModelConfig, p, h, state=None, conv_buf=None,
     chunk = min(cfg.ssm_chunk, L)
     while L % chunk:          # chunk must divide L; fall back to smaller
         chunk //= 2
-    y, S_fin = ops.ssd_scan(x.contiguous(), dt.contiguous(), A,
-                            Bm.contiguous(), Cm.contiguous(), state,
-                            chunk=chunk)
+    y, S_fin = SSDScan.apply(x.contiguous(), dt.contiguous(), A,
+                             Bm.contiguous(), Cm.contiguous(), state, chunk)
     y = y.to(x.dtype)        # the reference's chunked scan returns x's dtype
     y = y.float() + p.D.float()[None, None, :, None] * x.float()
     return (_gated_out(cfg, p, y.reshape(B, L, d_in), z, h.dtype),

@@ -134,7 +134,7 @@ class CostModel:
     def predictor_time(self, flops: float) -> float:
         """Seconds of predictor work for ``flops`` charged FLOPs.
 
-        The length-prediction strategies (`repro.serving.predictors`)
+        The length-prediction strategies (`repro_torch.serving.predictors`)
         book the FLOPs an external implementation would spend (a
         BERT-sized prompt model, an ELIS proxy re-prediction); the
         engine drains them every step and charges the simulated clock

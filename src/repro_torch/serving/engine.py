@@ -90,7 +90,7 @@ class EngineConfig:
             byte-identical to the pre-prefix-cache engine.
         predictor: length-prediction strategy spec
             (``name[:key=value,...]``, see
-            `repro.serving.predictors.STRATEGIES`), e.g.
+            `repro_torch.serving.predictors.STRATEGIES`), e.g.
             ``"noisy-oracle:sigma=0.5"``. Empty (the default) keeps the
             legacy sim-mode `OraclePredictor` — byte-identical to
             pre-strategy-layer engines. An explicitly passed predictor
@@ -349,11 +349,12 @@ class Engine:
                 legacy sim-mode `OraclePredictor`.
             model: the ``repro_torch.models.model.Model`` (real mode
                 only); it carries its parameters.
-            event_log: optional `repro.metrics.EventLog`; when given the
-                engine records per-request lifecycle events (arrival /
-                admit / first-token / tokens / finish / preempt / swap)
-                into it during ``step()``. Pure observation — results
-                are byte-identical with or without a log.
+            event_log: optional `repro_torch.metrics.EventLog`; when
+                given the engine records per-request lifecycle events
+                (arrival / admit / first-token / tokens / finish /
+                preempt / swap) into it during ``step()``. Pure
+                observation — results are byte-identical with or
+                without a log.
             device: where real mode runs (``cuda`` unless the caller
                 asks for ``cpu``); the model must live there.
         """
@@ -1730,14 +1731,15 @@ def run_policy(cfg: ModelConfig, policy: str, requests, *, c_limit=0.8,
     returning the engine's `EngineStats`.
     ``predictor`` accepts either a `PredictorBase` instance or a
     strategy spec string (``"noisy-oracle:sigma=0.5"``, see
-    `repro.serving.predictors.make_predictor`); None keeps the legacy
-    default. Pass a `repro.metrics.EventLog` as ``event_log`` to
-    capture the per-request event stream alongside. The resilience
-    knobs (``deadline_s`` / ``ttft_deadline_s`` / ``shed_watermark`` /
-    ``admission_control``) and the tail knobs (``age_boost`` /
-    ``age_delay_s`` / ``deadline_slack_s``) mirror `EngineConfig` and
-    default off. Real mode (``mode="real"``, either ``kv_layout``) runs
-    ``model`` on ``device``: ``cuda`` unless the caller asks for ``cpu``.
+    `repro_torch.serving.predictors.make_predictor`); None keeps the
+    legacy default. Pass a `repro_torch.metrics.EventLog` as
+    ``event_log`` to capture the per-request event stream alongside.
+    The resilience knobs (``deadline_s`` / ``ttft_deadline_s`` /
+    ``shed_watermark`` / ``admission_control``) and the tail knobs
+    (``age_boost`` / ``age_delay_s`` / ``deadline_slack_s``) mirror
+    `EngineConfig` and default off. Real mode (``mode="real"``, either
+    ``kv_layout``) runs ``model`` on ``device``: ``cuda`` unless the
+    caller asks for ``cpu``.
     """
     spec = predictor if isinstance(predictor, str) else ""
     if spec:

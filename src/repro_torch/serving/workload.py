@@ -30,9 +30,8 @@ and are built with `scenario_config` — reachable from ``launch/serve.py
 --scenario`` and ``benchmarks/cluster_curves.py``. Recorded traces are a
 scenario source too: ``scenario_config("trace:<path>", ...)`` (or
 ``trace:sample`` for the bundled fixture) replays arrivals and
-prompt/output lengths from an Azure-LLM-inference-style trace in the
-reference package; the port does not replay traces yet (``wc.trace``
-raises ``NotImplementedError``).
+prompt/output lengths from an Azure-LLM-inference-style trace through
+``repro_torch.traces`` instead of synthesizing them.
 
 RNG streams: historically one ``random.Random(seed)`` drove arrivals,
 lengths, *and* prompt-token content, so any arrival-process change
@@ -137,7 +136,7 @@ class WorkloadConfig:
             benchmarks.
         trace: replay a recorded trace instead of synthesizing arrivals
             and lengths: a ``.jsonl``/``.csv`` path, or ``sample`` for
-            the bundled Azure-style fixture (see ``repro.traces``).
+            the bundled Azure-style fixture (see ``repro_torch.traces``).
             When set, ``n_requests`` caps the replayed records, ``seed``
             and ``vocab`` drive prompt token content, and the arrival /
             length knobs above are ignored (they come from the trace).
@@ -149,12 +148,12 @@ class WorkloadConfig:
             non-default ``trace_rate_scale`` is set — an explicit scale
             wins.
         trace_time_warp: uniform playback-speed multiplier for trace
-            replay (see `repro.traces.ReplayConfig`).
+            replay (see `repro_torch.traces.ReplayConfig`).
         predictor: length-prediction strategy spec the scenario
             recommends (``name[:key=value,...]``, see
-            `repro.serving.predictors.STRATEGIES`). Workload generation
-            itself never reads it — it rides the config so scenario
-            presets and ``scenario_config(..., predictor=...)``
+            `repro_torch.serving.predictors.STRATEGIES`). Workload
+            generation itself never reads it — it rides the config so
+            scenario presets and ``scenario_config(..., predictor=...)``
             overrides reach the engine/cluster launchers
             (``launch/serve.py`` uses it when ``--predictor`` is not
             given). Empty = the engine's legacy default.
@@ -453,9 +452,26 @@ def _generate_per_tenant(wc: WorkloadConfig,
 
 
 def _generate_from_trace(wc: WorkloadConfig) -> list[Request]:
-    """Trace-backed generation is not ported yet (the traces package is not)."""
-    raise NotImplementedError(
-        f"trace replay ({wc.trace!r}) is not ported; synthesize instead")
+    """Trace-backed generation: load + replay-materialize.
+
+    The traces package is imported lazily so the workload module stays
+    importable without it. The trace is parsed exactly once; a
+    ``trace_target_rate`` converts into a rate-scale against the loaded
+    trace's native mean rate here, unless an explicit non-default
+    ``trace_rate_scale`` was given.
+    """
+    from repro_torch.traces import (ReplayConfig, load_trace,
+                                    requests_from_trace)
+    trace = load_trace(wc.trace, limit=wc.n_requests or None)
+    scale = wc.trace_rate_scale
+    if wc.trace_target_rate > 0 and scale == 1.0 and trace.mean_rate > 0:
+        scale = wc.trace_target_rate / trace.mean_rate
+    rcfg = ReplayConfig(rate_scale=scale,
+                        time_warp=wc.trace_time_warp,
+                        limit=wc.n_requests or None,
+                        max_output=wc.max_out, seed=wc.seed,
+                        vocab=wc.vocab)
+    return requests_from_trace(trace, rcfg)
 
 
 # ---------------------------------------------------------------------------

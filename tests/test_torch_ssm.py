@@ -325,6 +325,43 @@ def test_flush_resets_zeroes_the_released_slots_ssm_state(kv_layout):
         assert torch.equal(x[:, others], before[k][:, others]), k
 
 
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_scan_function_gradients_match_jax_grad(init):
+    """``SSDScan`` (the scan with the plain version's backward) against
+    ``jax.grad`` of the reference's ``ssd_chunked``, float32, from an
+    initial state and from zeros: every input's gradient within 1e-5 plus
+    1e-4 of the largest gradient of that input, both outputs weighted."""
+    rng = np.random.default_rng(21)
+    Bs, L, nh, hp, N, chunk = 2, 32, 3, 8, 6, 8
+    f = np.float32
+    ins = [rng.standard_normal((Bs, L, nh, hp)).astype(f),
+           (0.3 * rng.random((Bs, L, nh)) + 0.01).astype(f),
+           -np.exp(0.5 * rng.standard_normal(nh)).astype(f),
+           rng.standard_normal((Bs, L, N)).astype(f),
+           rng.standard_normal((Bs, L, N)).astype(f)]
+    if init:
+        ins.append((0.5 * rng.standard_normal((Bs, nh, hp, N))).astype(f))
+    wy = rng.standard_normal((Bs, L, nh, hp)).astype(f)
+    ws = rng.standard_normal((Bs, nh, hp, N)).astype(f)
+
+    def jloss(*a):
+        y, s = jssm.ssd_chunked(*a[:5], chunk,
+                                init_state=a[5] if init else None)
+        return jnp.sum(y * wy) + jnp.sum(s * ws)
+    jgrads = jax.grad(jloss, argnums=tuple(range(len(ins))))(*ins)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in ins]
+    y, s = tssm.SSDScan.apply(*leaves[:5], leaves[5] if init else None,
+                              chunk)
+    loss = (y * torch.from_numpy(wy)).sum() + (s * torch.from_numpy(ws)).sum()
+    assert abs(float(loss.detach()) - float(jloss(*ins))) <= (
+        1e-5 * abs(float(jloss(*ins))))
+    tgrads = torch.autograd.grad(loss, leaves)
+    for j, t in zip(jgrads, tgrads):
+        assert t.shape == j.shape and t.dtype == torch.float32
+        top = float(np.abs(np32(j)).max())
+        assert float(np.abs(np32(t) - np32(j)).max()) <= 1e-5 + 1e-4 * top
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_train_and_all_taps_match_jax(arch):
     """The training forward (chunked scan, no cache) and the profiling

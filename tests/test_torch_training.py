@@ -53,6 +53,9 @@ from repro_torch.training import train as ttrain
 from repro_torch.training.data import DataConfig, batches, harvest_probe_data
 
 ARCHS = ("trail-llama", "gemma2-9b")
+# the training forward also of the Mamba-2 and hybrid stacks (the SSM
+# layers' gradient through ``models.ssm.SSDScan``)
+TRAIN_ARCHS = ARCHS + ("mamba2-370m", "hymba-1.5b")
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,7 +152,7 @@ def train_forward(arch):
     return (jloss, jaux, jgrads), (tloss, taux, params_to_jax(tm.cfg, tgrads))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_forward_train_loss_and_tap(arch):
     (jloss, jaux, _), (tloss, taux, _) = train_forward(arch)
     assert abs(float(jloss) - float(tloss.detach())) <= 2e-5 * float(jloss)
@@ -158,7 +161,7 @@ def test_forward_train_loss_and_tap(arch):
     assert float(taux["aux_loss"]) == 0.0
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_forward_train_gradients(arch):
     """Every parameter's gradient; the probe's is 0 in both (the LM loss
     does not reach it), remat on (each block recomputed in the
@@ -371,3 +374,19 @@ def test_launch_train_main(tmp_path, capsys):
     assert jax.tree.structure(restored) == jax.tree.structure(ref_tree)
     for r, s in zip(jax.tree.leaves(restored), jax.tree.leaves(ref_tree)):
         assert r.shape == s.shape and r.dtype == s.dtype
+
+
+def test_launch_train_main_trains_mamba2_on_the_cpu():
+    """The launcher trains the Mamba-2 smoke model (the SSM layers'
+    backward through ``SSDScan``) on the CPU: finite losses, the weights
+    in the returned model, no kernel launched."""
+    before = dict(ops.launches)
+    model, params, hist = tlaunch.main([
+        "--arch", "mamba2-370m", "--smoke", "--steps", "4", "--batch", "2",
+        "--seq", "96", "--device", "cpu"])
+    assert ops.launches == before
+    assert [r["step"] for r in hist] == [0, 3]
+    assert all(np.isfinite(r["loss"]) for r in hist)
+    assert hist[-1]["loss"] < hist[0]["loss"]
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, params[k].to(v.dtype))
