@@ -90,7 +90,20 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
 6. serve ``granite-3-8b`` at full width (40 layers, random weights from a
    seed) through ``run_policy(mode="real", kv_layout="paged",
    policy="trail", probe_interval=4)`` with the probe predictor; step a
-   short second run checking ``lengths == _kv_written``; profile one
+   short second run checking ``lengths == _kv_written``; then
+   (``phase_cluster``) drive ``repro_torch.cluster.Router`` over 2 real
+   paged replicas of that same model (each its own pool, seed and probe
+   predictor) with the same 12 requests three times: colocated jspw (both
+   replicas served, both paged kernels launched), 1 prefill + 1 decode
+   replica (12 handoffs, each payload bit-equal to the source pool's
+   pages just before export and the destination's just after import),
+   and jspw with replica 1 crashed at half the colocated run's virtual
+   makespan (goodput 1.0, a retry, the crashed pool's ``pkpos`` all -1
+   once its resets are flushed); each with 12 of 12 finished and no page
+   used at the drain, its host wall, dispatch counts, engine steps, peak
+   memory and launches logged; then the reference's migration test on
+   ``granite-smoke`` in float32 on the card (the migrated request's
+   greedy tokens equal the unmigrated run's and the CPU's); profile one
    decode megastep and one prefill chunk;
 7. serve ``gemma2-9b`` at full width and depth (42 layers, random weights
    from seed 0) through ``run_policy(mode="real", kv_layout="contig",
@@ -1937,7 +1950,6 @@ def _serve(torch, cfg, model, reqs, knobs, pred):
 def _load(torch, arch):
     from repro_torch.config import get_config
     from repro_torch.models.model import Model
-    from repro_torch.serving.predictors import ProbePredictor
     cfg = get_config(arch)
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(seed=0)
@@ -1951,9 +1963,7 @@ def _load(torch, arch):
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}"
         f"{ssm}; {n_params / 1e9:.2f} B params (matmul weights bf16) "
         f"initialised in {time.perf_counter() - t0:.1f} s")
-    pred = ProbePredictor(cfg.probe, probe_params=model.probe,
-                          embed_table=model.embed)
-    return cfg, model, pred
+    return cfg, model, _probe(cfg, model)
 
 
 def _describe(reqs, max_len):
@@ -1978,6 +1988,9 @@ def phase_serve_granite(torch):
     log(f"[serve] stepped run: 5 requests in {steps} steps, lengths == "
         f"_kv_written after every step, tokens in range, posteriors and KV "
         f"pool finite")
+    phase_cluster(torch, cfg, model, knobs)
+    gc.collect()
+    torch.cuda.empty_cache()
     cache = model.init_cache(16, 448, kv_layout="paged", page_size=16)
     cache["block_table"].copy_(torch.arange(
         1, 1 + 16 * 28, dtype=torch.int32, device="cuda").reshape(16, 28))
@@ -1989,6 +2002,290 @@ def phase_serve_granite(torch):
     # pushing the whole run much past 300 s on a slow host
     phase_harvest(torch, cfg, model, n_batches=4, seed=2, gate=False)
     return launches
+
+
+def _probe(cfg, model):
+    from repro_torch.serving.predictors import ProbePredictor
+    return ProbePredictor(cfg.probe, probe_params=model.probe,
+                          embed_table=model.embed)
+
+
+def _cluster_run(torch, label, cfg, model, knobs, rc, faults=None,
+                 prefill=0, hook=None):
+    """One ``Router.run`` of ``_requests(cfg, 12, 0)`` over ``rc.n_replicas``
+    real paged replicas sharing ``model`` (each its own pool, seed and
+    probe predictor; the first ``prefill`` are ``prefill_only``), the
+    router's size predictor a probe predictor of its own. Every launch
+    count is 0 just before and read just after. ``hook(replicas)`` may
+    wrap replica methods and returns the seconds they spent checking.
+    Checks 12 of 12 finished with tokens in range and finite predictions
+    and no page used at the drain. Returns (stats, launches, replicas)."""
+    from repro_torch.cluster import Router
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, EngineConfig
+    reqs = _requests(cfg, 12, 0)
+    replicas = [Engine(cfg, EngineConfig(policy="trail", seed=i,
+                                         prefill_only=i < prefill, **knobs),
+                       predictor=_probe(cfg, model), model=model,
+                       device="cuda")
+                for i in range(rc.n_replicas)]
+    checking = hook(replicas) if hook else (lambda: 0.0)
+    router = Router(replicas, rc, size_predictor=_probe(cfg, model),
+                    faults=faults)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stats = router.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    s = stats.summary()
+    steps = [r["iterations"] for r in stats.replica_summaries]
+    log(f"[cluster] {label}: {s['finished']}/12 finished, dispatch counts "
+        f"{s['dispatch_counts']}, engine steps {steps}, handoffs "
+        f"{s['handoffs']} ({s['handoff_pages']} pages), crashes "
+        f"{s['replica_crashes']}, retries {s['retries']}, lost {s['lost']}, "
+        f"virtual makespan {s['makespan']:.3f} s")
+    log(f"[cluster] {label}: wall {wall:.3f} s (host clock, ends in "
+        f"synchronize; {checking():.3f} s of it in the phase's own checks), "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, used pages "
+        f"at the drain {stats.leaked_pages}")
+    log(f"[cluster] {label}: kernel launches {launches}")
+    if s["finished"] != 12 or len(stats.latencies) != 12:
+        fail(f"cluster {label}: {s['finished']} of 12 finished")
+    _check_requests(torch, cfg, reqs)
+    if any(stats.leaked_pages):
+        fail(f"cluster {label}: pages still used at the drain "
+             f"{stats.leaked_pages}")
+    return stats, launches, replicas
+
+
+def _page_leaves(torch, pool, pids):
+    """Every paged leaf of ``pool`` at physical pages ``pids``, on the
+    host: ``{(run, sub, leaf): tensor}``."""
+    idx = torch.tensor(pids, dtype=torch.long, device=pool.device)
+    return {(key, j, leaf): sub[leaf].index_select(1, idx).cpu()
+            for key, run in pool.cache.items() if key.startswith("run_")
+            for j, sub in enumerate(run) if "pkpos" in sub
+            for leaf in ("pk", "pv", "pkpos")}
+
+
+def _payload_leaves(handoff, n):
+    return {(key, j, leaf): pay[leaf][:, :n]
+            for key, run in handoff.payload.items()
+            for j, pay in enumerate(run) if pay is not None
+            for leaf in ("pk", "pv", "pkpos")}
+
+
+def _bit_equal(torch, a, b) -> bool:
+    """Same keys, dtypes, shapes and bytes."""
+    return a.keys() == b.keys() and bool(a) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and torch.equal(a[k].contiguous().view(-1).view(torch.uint8),
+                        b[k].contiguous().view(-1).view(torch.uint8))
+        for k in a)
+
+
+def _handoff_checks(torch, moved):
+    """Wrap the prefill replica's ``export_request`` and the decode
+    replica's ``import_request`` (on the instances only): each payload
+    must equal the source pool's pages just before export and the
+    destination pool's just after import, bit for bit. ``moved`` collects
+    (pages, payload bytes, export seconds, import seconds) per handoff,
+    each call's host wall ending in a synchronize."""
+    spent = [0.0]
+
+    def hook(replicas):
+        src, dst = replicas
+
+        def export_request(rid, _orig=src.export_request):
+            t0 = time.perf_counter()
+            src.pool.flush_resets()
+            before = _page_leaves(torch, src.pool,
+                                  src.blocks.block_table(rid))
+            spent[0] += time.perf_counter() - t0
+            t_export = time.perf_counter()
+            h = _orig(rid)
+            torch.cuda.synchronize()
+            t_export = time.perf_counter() - t_export
+            if h.payload is None:
+                fail(f"handoff of rid {rid}: no page payload")
+            t0 = time.perf_counter()
+            shipped = _payload_leaves(h, None)
+            if not _bit_equal(torch, shipped, before):
+                fail(f"handoff of rid {rid}: the payload differs from the "
+                     f"source pages")
+            moved.append([h.n_pages, sum(t.numel() * t.element_size()
+                                         for t in shipped.values()),
+                          t_export, 0.0])
+            spent[0] += time.perf_counter() - t0
+            return h
+
+        def import_request(h, t=None, _orig=dst.import_request):
+            t0 = time.perf_counter()
+            kv = _orig(h, t=t)
+            torch.cuda.synchronize()
+            moved[-1][3] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pids = dst.blocks.block_table(h.req.rid)
+            if kv <= 0 or not _bit_equal(
+                    torch, _payload_leaves(h, len(pids)),
+                    _page_leaves(torch, dst.pool, pids)):
+                fail(f"handoff of rid {h.req.rid}: the destination pages "
+                     f"differ from the payload ({kv} tokens resumed)")
+            spent[0] += time.perf_counter() - t0
+            return kv
+
+        src.export_request = export_request
+        dst.import_request = import_request
+        return lambda: spent[0]
+
+    return hook
+
+
+def phase_cluster(torch, cfg, model, serve_knobs):
+    """The cluster router over 2 real paged replicas of the served
+    ``granite-3-8b`` (one ``Model`` shared, as the reference's migration
+    test shares its parameters), 12 requests each time: colocated jspw,
+    1 prefill + 1 decode with every handoff's pages checked bit for bit
+    across export and import, and jspw with replica 1 crashed at half the
+    colocated run's virtual makespan; then the float32 migration parity
+    of ``granite-smoke`` on the card against its unmigrated run and the
+    CPU's."""
+    from repro_torch.cluster import RouterConfig
+    from repro_torch.cluster.faults import parse_chaos
+    t_phase = time.perf_counter()
+    knobs = serve_knobs         # the same 12 requests, hence max_len
+    paged = ("paged_decode_attention", "paged_decode_attention_multi")
+
+    stats, launches, replicas = _cluster_run(
+        torch, "colocated", cfg, model, knobs,
+        RouterConfig(n_replicas=2, policy="jspw"))
+    if min(stats.dispatch_counts) <= 0:
+        fail(f"colocated: a replica received no request "
+             f"{stats.dispatch_counts}")
+    for name in paged:
+        if launches[name] <= 0:
+            fail(f"colocated: kernel {name} never launched")
+    makespan = stats.makespan
+    del replicas
+
+    moved = []
+    stats, launches, replicas = _cluster_run(
+        torch, "disaggregated 1P+1D", cfg, model, knobs,
+        RouterConfig(n_replicas=2, policy="jspw", prefill_replicas=1),
+        prefill=1, hook=_handoff_checks(torch, moved))
+    if stats.n_handoffs != 12 or stats.handoff_pages <= 0 \
+            or len(moved) != 12:
+        fail(f"disaggregated: {stats.n_handoffs} handoffs of "
+             f"{stats.handoff_pages} pages ({len(moved)} checked)")
+    for name in paged:
+        if launches[name] <= 0:
+            fail(f"disaggregated: kernel {name} never launched")
+    nbytes = [b for _, b, _, _ in moved]
+    t_out = sum(m[2] for m in moved)
+    t_in = sum(m[3] for m in moved)
+    log(f"[cluster] disaggregated: 12 handoffs, "
+        f"{sum(m[0] for m in moved)} pages, payload "
+        f"{min(nbytes) / 2**20:.2f}-{max(nbytes) / 2**20:.2f} MiB a "
+        f"handoff ({sum(nbytes) / 2**20:.1f} MiB in all), each bit-equal "
+        f"to the source pages before export and the destination pages "
+        f"after import; export_request {t_out:.3f} s in all "
+        f"({sum(nbytes) / t_out / 1e9:.2f} GB/s device to host), "
+        f"import_request {t_in:.3f} s ({sum(nbytes) / t_in / 1e9:.2f} GB/s "
+        f"host to device), host clock")
+    del replicas
+
+    t_crash = makespan / 2
+    stats, launches, replicas = _cluster_run(
+        torch, f"crash:1@{t_crash:.6f}", cfg, model, knobs,
+        RouterConfig(n_replicas=2, policy="jspw"),
+        faults=parse_chaos(f"crash:1@{t_crash}", seed=0))
+    s = stats.summary()
+    if not (s["goodput"] == 1.0 and s["lost"] == 0
+            and s["replica_crashes"] == 1 and s["retries"] >= 1):
+        fail(f"crash: goodput {s['goodput']}, lost {s['lost']}, crashes "
+             f"{s['replica_crashes']}, retries {s['retries']}")
+    dead = replicas[1].pool
+    dead.flush_resets()
+    live = [int((sub["pkpos"] != -1).sum()) for key, run in
+            dead.cache.items() if key.startswith("run_") for sub in run]
+    if any(live) or dead.slot_of:
+        fail(f"crash: the crashed replica's pool still holds KV ({live} "
+             f"live positions, slots {dead.slot_of})")
+    log(f"[cluster] crash: after the crashed replica's resets are flushed "
+        f"every page of its pool has pkpos == -1")
+    del replicas
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_migration_parity(torch)
+    log(f"[cluster] phase_cluster took {time.perf_counter() - t_phase:.1f} "
+        f"s in all (host clock)")
+
+
+def phase_migration_parity(torch):
+    """The reference's real-mode migration test on ``granite-smoke`` in
+    float32 on the card: a request exported mid-decode from one paged
+    engine and imported into another emits the unmigrated run's greedy
+    tokens, which equal the same weights' run on the CPU."""
+    import copy
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.workload import WorkloadConfig, generate
+    cfg, gpu, cpu = _model_pair("granite-3-8b", seed=0)
+    reqs = generate(WorkloadConfig(
+        n_requests=4, request_rate=50.0, seed=2, vocab=cfg.vocab_size,
+        prompt_mean=6.0, out_median=8.0, max_out=12, split_streams=True))
+
+    def make(model, device, seed):
+        return Engine(cfg, EngineConfig(
+            policy="trail", max_batch=3, mode="real", kv_layout="paged",
+            page_size=8, max_len=64, seed=seed),
+            predictor=_probe(cfg, model), model=model, device=device)
+
+    def drain(engines, into):
+        for eng in engines:
+            while eng.has_work():
+                for r in eng.step().completed:
+                    into[r.rid] = list(r.generated)
+        return into
+
+    want = {}
+    for key, device, model in (("card", "cuda", gpu), ("host", "cpu", cpu)):
+        eng = make(model, device, 0)
+        for r in copy.deepcopy(reqs):
+            eng.submit(r)
+        want[key] = drain([eng], {})
+    a, b = make(gpu, "cuda", 0), make(gpu, "cuda", 1)
+    for r in copy.deepcopy(reqs):
+        a.submit(r)
+    target = None
+    for _ in range(200):
+        a.step()
+        live = [r for r in a._pool_reqs.values()
+                if not r.done and r.generated]
+        if live:
+            target = max(live, key=lambda r: len(r.generated))
+            break
+    if target is None:
+        fail("migration parity: no request reached decode")
+    pre = len(target.generated)
+    h = a.export_request(target.rid)
+    if h.payload is None or b.import_request(h, t=a.now) <= 0:
+        fail("migration parity: no KV shipped or resumed")
+    got = drain([a, b], {})
+    log(f"[cluster] {cfg.name} f32 migration on the card: rid {target.rid} "
+        f"moved after {pre} of {len(want['card'][target.rid])} tokens with "
+        f"{h.n_pages} pages; tokens equal to the unmigrated run "
+        f"{got == want['card']}, unmigrated equal to the CPU's "
+        f"{want['card'] == want['host']}")
+    if got != want["card"] or want["card"] != want["host"] \
+            or len(want["card"][target.rid]) <= pre:
+        fail("migration parity: migrated tokens differ from the unmigrated "
+             "run or the card's from the CPU's")
+    if a.blocks.used_pages() or b.blocks.used_pages():
+        fail("migration parity: pages left in use")
 
 
 def phase_harvest(torch, cfg, model, *, n_batches, seed, gate):

@@ -711,6 +711,34 @@ class SlotPool:
         return self.n_slots - len(self.free)
 
 
+_PAGE_LEAVES = ("pk", "pv", "pkpos")
+_ALIGN = 16                 # byte alignment of each leaf in a packed buffer
+
+
+def _pack(tensors) -> torch.Tensor:
+    """Concatenate tensors' bytes into one flat uint8 tensor (each leaf at
+    a 16-byte aligned offset), on the tensors' device."""
+    parts = []
+    for t in tensors:
+        flat = t.contiguous().reshape(-1).view(torch.uint8)
+        parts.append(flat)
+        pad = -flat.numel() % _ALIGN
+        if pad:
+            parts.append(flat.new_zeros(pad))
+    return torch.cat(parts)
+
+
+def _unpack(flat: torch.Tensor, like) -> list[torch.Tensor]:
+    """Views into a `_pack`ed buffer with the dtypes and shapes of
+    ``like``, in order."""
+    out, offset = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(flat[offset:offset + n].view(t.dtype).view(t.shape))
+        offset += n + (-n % _ALIGN)
+    return out
+
+
 def _layer_leaves(cache: dict, leaf: str):
     """Every layer run's leaf dict that holds ``leaf`` (``kpos``: slot
     caches; ``pkpos``: paged K/V; ``ssm_state``: SSM and hybrid layers)."""
@@ -832,10 +860,12 @@ class PagedSlotPool(SlotPool):
     def export_pages(self, rid: int):
         """Gather ``rid``'s resident page payload for shipping.
 
-        One batched device->host copy of pk/pv/pkpos per paged layer run
-        (CPU tensors, ``{run: ({leaf: tensor}, ...)}``). Bookkeeping is
-        untouched (pair with ``blocks.export_request``). Returns None when
-        nothing is resident.
+        One batched device->host copy of pk/pv/pkpos per paged layer run:
+        the run's pages are gathered and packed into one device buffer,
+        copied to the host at once and viewed back as CPU tensors,
+        ``{run: ({leaf: tensor}, ...)}``. Bookkeeping is untouched (pair
+        with ``blocks.export_request``). Returns None when nothing is
+        resident.
         """
         pids = self.blocks.block_table(rid)
         if not pids:
@@ -846,9 +876,12 @@ class PagedSlotPool(SlotPool):
         for key, run in self.cache.items():
             if not key.startswith("run_"):
                 continue
+            pages = [sub[leaf].index_select(1, idx)
+                     for sub in run if "pkpos" in sub
+                     for leaf in _PAGE_LEAVES]
+            host = iter(_unpack(_pack(pages).cpu(), pages) if pages else ())
             payload[key] = tuple(
-                {leaf: sub[leaf].index_select(1, idx).cpu()
-                 for leaf in ("pk", "pv", "pkpos")}
+                {leaf: next(host) for leaf in _PAGE_LEAVES}
                 if "pkpos" in sub else None
                 for sub in run)
         return payload
@@ -858,11 +891,12 @@ class PagedSlotPool(SlotPool):
 
         Allocates fresh pages covering ``tokens`` (clamped to ``max_len``)
         and scatters the shipped payload into them, in place, with one
-        batched host->device write per layer run. ``flush_resets`` runs
-        first so a queued wipe of a recycled physical page cannot land
-        after the import and destroy the new content. False on pool
-        exhaustion (nothing allocated; the caller re-prefills from
-        scratch).
+        batched host->device copy per paged layer run (the run's leaves
+        packed on the host, copied at once, then scattered).
+        ``flush_resets`` runs first so a queued wipe of a recycled
+        physical page cannot land after the import and destroy the new
+        content. False on pool exhaustion (nothing allocated; the caller
+        re-prefills from scratch).
         """
         self.flush_resets()
         tokens = min(tokens, self.max_len)
@@ -876,11 +910,17 @@ class PagedSlotPool(SlotPool):
         for key, run in self.cache.items():
             if not key.startswith("run_"):
                 continue
+            targets, shipped = [], []
             for sub, pay in zip(run, payload[key]):
                 if "pkpos" in sub and pay is not None:
-                    for leaf in ("pk", "pv", "pkpos"):
-                        sub[leaf].index_copy_(
-                            1, dst, pay[leaf][:, :n].to(self.device))
+                    for leaf in _PAGE_LEAVES:
+                        targets.append(sub[leaf])
+                        shipped.append(pay[leaf][:, :n])
+            if not targets:
+                continue
+            flat = _pack(shipped).to(self.device)
+            for target, pages in zip(targets, _unpack(flat, shipped)):
+                target.index_copy_(1, dst, pages)
         return True
 
     def _write_table_row(self, slot: int, pages: list[int]):

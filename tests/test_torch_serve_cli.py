@@ -1,12 +1,15 @@
 """``python -m repro_torch.launch.serve`` against the reference CLI.
 
-The error cases of the reference's own CLI test that still apply, plus
-each mode whose package is not ported: exit 2, ``error:`` on stderr, no
-traceback. Six sim runs print the same JSON, and write the same
-``--metrics-out`` file, as ``python -m repro.launch.serve`` with the same
-argv (the reference in a subprocess on the CPU, the port in-process). A
-real-mode run of ``trail-llama-smoke`` on the CPU finishes every request
-and prints the keys the reference's real mode prints.
+The error cases of the reference's own CLI test, and the refusals of its
+cluster and front-door modes (real mode, a contiguous layout under
+``--disagg``, chaos without replicas, the door with replicas): exit 2,
+``error:`` on stderr with the reference's message, no traceback. Ten sim
+runs (single engine, cluster, disaggregated, under a crash, closed loop)
+print the same JSON, and write the same ``--metrics-out`` file, as
+``python -m repro.launch.serve`` with the same argv (the reference in a
+subprocess on the CPU, the port in-process). A real-mode run of
+``trail-llama-smoke`` on the CPU finishes every request and prints the
+keys the reference's real mode prints.
 """
 
 import json
@@ -41,21 +44,38 @@ ERRORS = [
     ["--time-scale", "20"],                      # needs --serve
     ["--think-time", "1.0"],                     # needs --clients
     ["--requests-per-client", "2"],              # needs --clients
-    # modes whose packages are not ported
-    ["--replicas", "2"],
-    ["--disagg", "1:3"],
+    # the reference's refusals in its cluster and front-door modes
+    ["--replicas", "2", "--real"],
+    ["--disagg", "1:3", "--kv-layout", "contig"],
     ["--chaos", "crash:1@5"],
     ["--chaos", "meteor:0@5", "--replicas", "2"],
-    ["--serve"],
+    ["--serve", "--real"],
     ["--serve", "--port", "99999"],
-    ["--clients", "4"],
+    ["--clients", "4", "--replicas", "2"],
     ["--clients", "0"],
 ]
-UNPORTED = {"--replicas": "repro_torch.cluster",
-            "--disagg": "repro_torch.cluster",
-            "--chaos": "repro_torch.cluster",
-            "--serve": "repro_torch.server",
-            "--clients": "repro_torch.clients"}
+# the reference CLI's own message for each of those refusals
+MESSAGES = {
+    "--replicas 2 --real": "cluster mode is sim-only (one device pool)",
+    "--disagg 1:3 --kv-layout contig":
+        "--disagg requires a paged KV layout (pages are the unit of "
+        "handoff); drop --kv-layout contig",
+    "--chaos crash:1@5":
+        "--chaos requires cluster mode (--replicas >= 2): fault injection "
+        "and failover live in the router",
+    "--chaos meteor:0@5 --replicas 2":
+        "bad --chaos entry 'meteor:0@5': unknown fault kind 'meteor' "
+        "(expected crash:R@T[-U], slow:R@T-U*F, or flaky:R@T-U%P)",
+    "--serve --real":
+        "--serve/--clients run a live closed loop over one sim engine and "
+        "conflict with --real (the clients are the workload; GET /metrics "
+        "serves the live rollup)",
+    "--serve --port 99999": "--port must be in [0, 65535] (0 = OS-assigned)",
+    "--clients 4 --replicas 2":
+        "--serve/--clients drive a single engine; the cluster router is "
+        "not behind the front door yet (drop --replicas)",
+    "--clients 0": "--clients must be a positive user count",
+}
 
 
 @pytest.mark.parametrize("argv", ERRORS, ids=" ".join)
@@ -66,17 +86,18 @@ def test_invalid_flags_exit_2(argv, capsys):
     err = printed.err
     assert e.value.code == 2 and "error:" in err and "Traceback" not in err
     assert printed.out == ""
-    if argv[0] in UNPORTED and argv != ["--serve", "--port", "99999"]:
-        assert UNPORTED[argv[0]] in err and "not ported" in err
+    if " ".join(argv) in MESSAGES:
+        assert f"error: {MESSAGES[' '.join(argv)]}\n" in err
 
 
 def test_module_entry_point_exits_2_without_a_traceback():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--replicas",
-         "3"], env=ENV, capture_output=True, text=True, timeout=120)
+         "3", "--real"], env=ENV, capture_output=True, text=True,
+        timeout=120)
     assert out.returncode == 2, out.stderr
     assert "error:" in out.stderr and "Traceback" not in out.stderr
-    assert "repro_torch.cluster" in out.stderr and not out.stdout
+    assert "cluster mode is sim-only" in out.stderr and not out.stdout
 
 
 def reference_cli(argv):
@@ -98,8 +119,16 @@ def reference_cli(argv):
     ["--scenario", "bursty", "--predictor", "noisy-oracle:sigma=0.5",
      "--age-boost", "256", "--age-delay", "5", "--compute-bound", "--n",
      "60"],
+    ["--replicas", "2", "--router", "jspw", "--n", "60"],
+    ["--replicas", "4", "--disagg", "1:3", "--kv-layout", "paged",
+     "--trace", "sample", "--rate-scale", "24", "--n", "60",
+     "--metrics-out"],
+    ["--replicas", "2", "--chaos", "crash:1@5", "--kv-layout", "paged",
+     "--n", "60"],
+    ["--clients", "8"],
 ], ids=["fcfs", "bursty-shed", "trace-metrics", "trace-tail",
-        "prefix-cache", "predictor-aging"])
+        "prefix-cache", "predictor-aging", "cluster-jspw",
+        "disagg-metrics", "chaos-crash", "closed-loop"])
 def test_sim_output_equals_the_reference_cli(argv, tmp_path, capsys):
     paths = {}
     if argv[-1] == "--metrics-out":
