@@ -25,11 +25,14 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
 3. hold each kernel against its plain PyTorch version on the card, float32
    and bfloat16, with inactive (q_pos = -1) rows and a logit softcap:
    the paged kernels at the shapes of ``granite-3-8b``, ``trail-llama``
-   and ``gemma2-9b`` (head_dim 256) with scrambled block tables and null
-   pages; ``decode_attention`` at the shapes of ``gemma2-9b`` (a 4608-slot
+   and ``gemma2-9b`` (head_dim 256) and ``olmoe-1b-7b`` (16/16 heads of
+   128) with scrambled block tables and null pages;
+   ``decode_attention`` at the shapes of ``gemma2-9b`` (a 4608-slot
    cache, and a wrapped 4096-slot ring with window 4096), ``gemma3-1b``
    (one KV head, window 512), ``granite-3-8b`` and ``hymba-1.5b`` (25/5
-   heads of 64, a 1025-slot ring with window 1024); both single-query
+   heads of 64, a 1025-slot ring with window 1024), ``whisper-tiny`` (6/6
+   heads of 64) and ``olmoe-1b-7b`` (16/16 heads of 128), both 449
+   slots; both single-query
    kernels also at the edges of their split over a thread-block cluster
    (B=1, where the split is largest; rows of 1 and ps - 1 tokens, one
    scan tile and one round of tiles over the split; every valid key in
@@ -77,8 +80,9 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    kernels and their library call as CUDA graphs of 30 calls (at the
    serves' shapes a call takes less device time than its wrapper takes
    on the host), also at the shapes the serves launch most: the gemma2-9b
-   and hymba-1.5b local rings holding 300 positions and granite's
-   28-page tables holding about 300 tokens; ``ssd_scan`` at a prefill
+   and hymba-1.5b local rings holding 300 positions, granite's and
+   olmoe's 28-page tables holding about 300 tokens and whisper's and
+   olmoe's 449-slot rows holding 300; ``ssd_scan`` at a prefill
    chunk's shape of mamba2-370m and hymba-1.5b and at the tap harvest's
    (mamba2-370m, 8 x 512 from a zero state);
 5. hold the model on the card against the same weights on the CPU in
@@ -125,10 +129,12 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     32/8 heads, a gemma2-9b local layer at S=4608 with window 4096 and
     softcap 50, a gemma3-1b local layer with window 512, hymba-1.5b's
     25/5 heads with window 1024 at S=1500, and granite's heads at S=777,
-    neither a multiple of the key tile), plus the
-    ``FlashAttention`` Function's gradients against plain autograd;
-    timed in phase 4 at the trail-llama, granite and gemma2 shapes
-    (library yardstick: ``scaled_dot_product_attention(is_causal=True,
+    neither a multiple of the key tile, and the whisper-tiny encoder's
+    non-causal 16 x 1500 with 6/6 heads of 64), plus the
+    ``FlashAttention`` Function's gradients against plain autograd
+    (causal, and non-causal as in the encoder); timed in phase 4 at the
+    trail-llama, granite, gemma2 and whisper encoder shapes (library
+    yardstick: ``scaled_dot_product_attention(is_causal=...,
     enable_gqa=True)``, no softcap or window);
 11. hold the training path on the card against the CPU in float32 on
     ``trail-llama-smoke`` and ``gemma2-smoke`` (S=64, so the window of 16
@@ -177,7 +183,27 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     ``--metrics-out`` (it must parse, and the run's event log must pass
     ``check_invariants``), the same under ``--kv-layout paged`` (both
     paged kernels), and ``mamba2-370m --real --n 12`` (``ssd_scan``):
-    12 of 12 finished each, the host wall of each run printed.
+    12 of 12 finished each, the host wall of each run printed;
+19. ``phase_serve_whisper``: ``whisper-tiny`` at full width and depth (4
+    encoder and 4 decoder layers, 1500 frames): in float32 on the card
+    against the CPU, ``prefill_chunk(enc_embeds=...)`` over 16 x 1500
+    frames (the encoder's non-causal ``flash_attention``, the cross
+    caches; ``encode`` and ``build_cross_cache`` alone give the same
+    caches bit for bit) and 8 decode steps, tokens equal and logits
+    within 1e-4; the 12 requests of phase 6 served contiguous with bf16
+    weights (``decode_attention``; the decoder reads zeroed cross caches,
+    as the reference engine's does); one ``forward_train`` and backward
+    with frame embeddings at 8 x 448 (4 non-causal launches in the
+    encoder, 8 causal in the decoder with its remat recompute);
+20. ``phase_serve_moe``: ``olmoe-1b-7b`` at full width and depth (16
+    layers, 64 experts top 8): the 12 requests served paged (both paged
+    kernels) and contiguous (``decode_attention``), ``moe_mlp`` at a
+    decode step's and a prefill chunk's shape under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), a decode
+    megastep and a prefill chunk profiled with their device time split
+    into the attention kernels and the MoE's router, dispatch, expert
+    products and combine, and ``olmoe-smoke`` in float32 against the CPU
+    (phase 5's check, contiguous and paged).
 
 Every kernel launch count is set to 0 just before a path is driven and
 read just after it; launches made to compare a kernel with its plain
@@ -415,25 +441,28 @@ def flash_case(torch, *, B, S, H, KH, hd, dtype, seed):
             for shape in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd))]
 
 
-def flash_bound(q, k, window, dtype):
+def flash_bound(q, k, window, dtype, causal=True):
     """Bytes: q, k and v read once and the output written once. Operations:
     4*hd (QK^T and PV) per (query head, key) pair that the causal (and
-    window) mask lets through."""
+    window) mask lets through; all S*S pairs without ``causal``."""
     B, S, H, hd = q.shape
     el = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * el
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    if not causal:
+        pairs = S * min(S, window) if window else S * S
     return bound_ms(nbytes, 4 * hd * H * B * pairs, dtype)
 
 
-def flash_library_call(q, k, v):
-    """One ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-    on (B, H, S, hd) copies made outside the timed call: the yardstick
-    (never used by the port). It has no softcap or window, so it times
-    the plain causal attention."""
+def flash_library_call(q, k, v, causal=True):
+    """One ``scaled_dot_product_attention(is_causal=causal,
+    enable_gqa=True)`` on (B, H, S, hd) copies made outside the timed
+    call: the yardstick (never used by the port). It has no softcap or
+    window, so it times the plain (causal or not) attention."""
     import torch.nn.functional as F
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal,
                                                   enable_gqa=True)
 
 
@@ -740,6 +769,7 @@ PAGED_SHAPES = {  # (H, KH, hd) of the served architectures
     "granite-3-8b": (32, 8, 128),
     "trail-llama": (12, 4, 64),
     "gemma2-9b": (16, 8, 256),
+    "olmoe-1b-7b": (16, 16, 128),
 }
 
 SLOT_CASES = [  # arch, H, KH, hd, M, window, softcap
@@ -748,6 +778,8 @@ SLOT_CASES = [  # arch, H, KH, hd, M, window, softcap
     ("gemma3-1b local", 4, 1, 256, 512, 512, 0.0),
     ("granite-3-8b", 32, 8, 128, 448, 0, 0.0),
     ("hymba-1.5b local", 25, 5, 64, 1025, 1024, 0.0),
+    ("whisper-tiny", 6, 6, 64, 449, 0, 0.0),
+    ("olmoe-1b-7b", 16, 16, 128, 449, 0, 0.0),
 ]
 
 
@@ -764,6 +796,7 @@ FLASH_CASES = [  # label, B, S, H, KH, hd, window, softcap, causal
     ("gemma3-1b local", 2, 1024, 4, 1, 256, 512, 0.0, True),
     ("hymba-1.5b local", 2, 1500, 25, 5, 64, 1024, 0.0, True),
     ("granite ragged S", 2, 777, 32, 8, 128, 0, 0.0, True),
+    ("whisper-tiny encoder", 16, 1500, 6, 6, 64, 0, 0.0, False),
 ]
 
 SSD_CASES = [  # label, B, L, nh, hp, N, chunk, decay of A
@@ -782,10 +815,11 @@ SSD_TIMED = {  # label: B, L, nh, N, from an initial state (bf16, hp 64)
     "ssd_scan[mamba2-370m,harvest]": (8, 512, 32, 128, False),
 }
 
-FLASH_TIMED = {  # arch: B, S, H, KH, hd, window, softcap (bf16)
-    "trail-llama": (8, 512, 12, 4, 64, 0, 0.0),
-    "granite-3-8b": (8, 512, 32, 8, 128, 0, 0.0),
-    "gemma2-9b local": (1, 4608, 16, 8, 256, 4096, 50.0),
+FLASH_TIMED = {  # arch: B, S, H, KH, hd, window, softcap, causal (bf16)
+    "trail-llama": (8, 512, 12, 4, 64, 0, 0.0, True),
+    "granite-3-8b": (8, 512, 32, 8, 128, 0, 0.0, True),
+    "gemma2-9b local": (1, 4608, 16, 8, 256, 4096, 50.0, True),
+    "whisper-tiny encoder": (16, 1500, 6, 6, 64, 0, 0.0, False),
 }
 
 
@@ -801,8 +835,8 @@ def phase_check_flash(torch):
     for i, (label, B, S, H, KH, hd, window, cap, causal) in enumerate(
             FLASH_CASES):
         for dtype in ("float32", "bfloat16"):
-            # seed 0 for the non-causal case: the inputs of
-            # test_flash_attention_non_causal_never_counts_padding
+            # seed 0 for the non-causal cases: the S=200 case's are the
+            # inputs of test_flash_attention_non_causal_never_counts_padding
             q, k, v = flash_case(torch, B=B, S=S, H=H, KH=KH, hd=hd,
                                  dtype=dtype, seed=0 if not causal else i)
             got = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -821,23 +855,25 @@ def phase_check_flash(torch):
             if label == "trail-llama" and dtype == "bfloat16":
                 worst = err
             del q, k, v, got, want, mag
-    for dtype, (B, S, H, KH, hd, window, cap) in (
-            ("float32", (2, 300, 12, 4, 64, 0, 0.0)),
-            ("bfloat16", (2, 512, 16, 8, 256, 128, 50.0))):
+    for dtype, (B, S, H, KH, hd, window, cap, causal) in (
+            ("float32", (2, 300, 12, 4, 64, 0, 0.0, True)),
+            ("bfloat16", (2, 512, 16, 8, 256, 128, 50.0, True)),
+            ("float32", (2, 300, 6, 6, 64, 0, 0.0, False))):  # the encoder
         q, k, v = flash_case(torch, B=B, S=S, H=H, KH=KH, hd=hd, dtype=dtype,
                              seed=S)
         dout = torch.randn_like(q)
         ins = [x.clone().requires_grad_() for x in (q, k, v)]
-        got = torch.autograd.grad(FlashAttention.apply(*ins, window, cap),
-                                  ins, dout)
+        got = torch.autograd.grad(
+            FlashAttention.apply(*ins, window, cap, causal), ins, dout)
         ins = [x.clone().requires_grad_() for x in (q, k, v)]
         want = torch.autograd.grad(ref.flash_attention_ref(
-            *ins, window=window, softcap=cap), ins, dout)
+            *ins, causal=causal, window=window, softcap=cap), ins, dout)
         torch.cuda.synchronize()
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             compare("FlashAttention." + name,
                     f"B={B} S={S} H={H} KH={KH} hd={hd} window={window} "
-                    f"softcap={cap:2.0f} {dtype}", a, b, dtype)
+                    f"softcap={cap:2.0f} causal={causal} {dtype}", a, b,
+                    dtype)
     return worst
 
 
@@ -1219,6 +1255,12 @@ DECODE_TIMED = [
      (16, 8, 256, 4097, 4096, 50.0, 300)),
     ("decode_attention[hymba-1.5b,ring-300]", "slot",
      (25, 5, 64, 1025, 1024, 0.0, 300)),
+    ("paged_decode_attention[olmoe-1b-7b,serve]", "paged",
+     ("olmoe-1b-7b", 28, True)),
+    ("decode_attention[olmoe-1b-7b,serve]", "slot",
+     (16, 16, 128, 449, 0, 0.0, 300)),
+    ("decode_attention[whisper-tiny,serve]", "slot",
+     (6, 6, 64, 449, 0, 0.0, 300)),
 ]
 
 
@@ -1626,7 +1668,7 @@ def phase_time(torch):
             plain_timer=time_ms)
 
     for arch, T in (("granite-3-8b", 8), ("granite-3-8b", 256),
-                    ("gemma2-9b", 8)):
+                    ("gemma2-9b", 8), ("olmoe-1b-7b", 256)):
         H, KH, hd = PAGED_SHAPES[arch]
         case = paged_case(torch, B=16, T=T, H=H, KH=KH, hd=hd, ps=16,
                           pmax=64, dtype="bfloat16", seed=100 + T,
@@ -1640,16 +1682,18 @@ def phase_time(torch):
             plain_iters=5 if T == 256 else 20)
 
     from repro_torch.kernels import flash_attention as fa
-    for arch, (B, S, H, KH, hd, window, cap) in FLASH_TIMED.items():
+    for arch, (B, S, H, KH, hd, window, cap, causal) in FLASH_TIMED.items():
         q, k, v = flash_case(torch, B=B, S=S, H=H, KH=KH, hd=hd,
                              dtype="bfloat16", seed=11)
         row(f"flash_attention[{arch}]", f"B={B} S={S} H={H} KH={KH} "
-            f"hd={hd} window={window} softcap={cap:2.0f} causal bf16",
-            lambda: fa.flash_attention(q, k, v, window=window, softcap=cap),
-            lambda: ref.flash_attention_ref(q, k, v, window=window,
-                                            softcap=cap),
-            flash_library_call(q, k, v), flash_bound(q, k, window,
-                                                     "bfloat16"),
+            f"hd={hd} window={window} softcap={cap:2.0f} "
+            f"{'causal' if causal else 'non-causal'} bf16",
+            lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                       softcap=cap),
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, softcap=cap),
+            flash_library_call(q, k, v, causal),
+            flash_bound(q, k, window, "bfloat16", causal),
             plain_iters=3 if S > 1024 else 10)
         del q, k, v
 
@@ -1686,17 +1730,22 @@ def _model_pair(arch, seed):
     return cfg, gpu, cpu
 
 
-def phase_reference(torch):
+REFERENCE_CASES = (("granite-3-8b", "paged"), ("gemma2-9b", "contig"),
+                   ("gemma2-9b", "paged"), ("mamba2-370m", "contig"),
+                   ("mamba2-370m", "paged"), ("hymba-1.5b", "contig"),
+                   ("hymba-1.5b", "paged"))
+
+
+def phase_reference(torch, cases=REFERENCE_CASES):
     """Smoke configs in float32: the model on the card (kernels) against
     the same weights on the CPU (plain versions). gemma2-smoke's and
     hymba-smoke's window is 16: the prompts (24 tokens, then 20 more) wrap
     the rings in a chunk. Row 1 of the first chunk is padded and row 3
     sits out the megastep, so the SSM configs also check that padding and
-    inactive rows leave the recurrent state alone on both devices."""
-    for arch, layout in (("granite-3-8b", "paged"), ("gemma2-9b", "contig"),
-                         ("gemma2-9b", "paged"), ("mamba2-370m", "contig"),
-                         ("mamba2-370m", "paged"), ("hymba-1.5b", "contig"),
-                         ("hymba-1.5b", "paged")):
+    inactive rows leave the recurrent state alone on both devices, and
+    olmoe-smoke (``phase_serve_moe``) that its padded and idle rows take
+    expert capacity alike on both."""
+    for arch, layout in cases:
         cfg, gpu, cpu = _model_pair(arch, seed=7)
         g = torch.Generator().manual_seed(7)
         chunks = [torch.randint(1, cfg.vocab_size, (4, w), generator=g,
@@ -1958,6 +2007,12 @@ def _load(torch, arch):
     nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
     ssm = (f", SSM {nh} heads of {cfg.ssm_head_dim}, state "
            f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}" if cfg.ssm_state else "")
+    if cfg.num_experts:
+        ssm += (f", {cfg.num_experts} experts top {cfg.experts_per_token} "
+                f"(capacity factor {cfg.capacity_factor})")
+    if cfg.num_encoder_layers:
+        ssm += (f", encoder {cfg.num_encoder_layers} layers over "
+                f"{cfg.encoder_seq} frames")
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}"
@@ -2724,6 +2779,232 @@ SERVE_CLI_RUNS = (  # label, argv, kernels the run must launch
 )
 
 
+WHISPER_ROWS = 16          # encoder rows of phase_serve_whisper's parity
+MOE_ANNOTATIONS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def phase_serve_whisper(torch):
+    """whisper-tiny at full width and depth (4 encoder and 4 decoder
+    layers, d_model 384, 6/6 heads of 64, 1500 frames, vocab 51865).
+
+    (a) float32 on the card against the same weights on the CPU:
+    ``prefill_chunk(enc_embeds=...)`` over 16 x 1500 frames made with numpy
+    (seed 0), which encodes them (``flash_attention`` non-causal on the
+    card) and fills the cross caches, one row padded; then a megastep of
+    8 decode steps with an inactive row. Greedy tokens equal; logits,
+    probe posteriors and the cross caches within 1e-4. ``encode`` and
+    ``build_cross_cache`` called alone on the card give the prefill's
+    cross caches bit for bit.
+    (b) serve granite's 12 requests through ``run_policy(mode="real",
+    kv_layout="contig", policy="trail", probe_interval=4, max_batch=16)``
+    with bf16 matmul weights; the engine passes no frame embeddings (as
+    the reference's), so the decoder reads the zeroed cross caches of
+    ``init_cache``: 12 of 12 finished, ``decode_attention`` launched.
+    (c) one ``forward_train`` and backward with frame embeddings at 8 x
+    448 tokens on float32 masters: ``flash_attention`` non-causal once
+    per encoder layer, causal twice per decoder layer (the remat
+    recompute), a finite loss and gradients.
+    Returns the serve's launches."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    cfg = get_config("whisper-tiny")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    gpu = Model(f32, device="cuda").init(seed=1)
+    cpu = Model(f32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(0)
+    B = WHISPER_ROWS
+    enc = torch.from_numpy(rng.standard_normal(
+        (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    tokens = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (B, 32)).astype(np.int32))
+    valid = torch.ones((B, 32), dtype=torch.bool)
+    valid[1, 20:] = False
+    active = torch.ones(B, dtype=torch.bool)
+    active[3] = False
+    out, walls = {}, {}
+    for where, m in (("card", gpu), ("CPU", cpu)):
+        dev = m.device
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache, _, _ = m.prefill_chunk(
+            m.init_cache(B, 64), tokens.to(dev), valid.to(dev),
+            enc_embeds=enc.to(dev))
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        toks, cache, probs, _ = m.decode_multi(cache, tok, active.to(dev),
+                                               k=8)
+        torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+        sub = cache["run_0"][0]
+        out[where] = [x.cpu() for x in (logits, probs, sub["ck"], sub["cv"],
+                                        toks)]
+        if where == "card":
+            launches = dict(ops.launches)
+            with torch.no_grad():
+                alone = gpu.build_cross_cache(gpu.init_cache(B, 64),
+                                              gpu.encode(enc.to(dev)))
+            if not (torch.equal(alone["run_0"][0]["ck"], sub["ck"])
+                    and torch.equal(alone["run_0"][0]["cv"], sub["cv"])):
+                fail("whisper-tiny: encode + build_cross_cache differ from "
+                     "prefill_chunk(enc_embeds=...)'s cross caches")
+            del alone
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(out["card"][:4], out["CPU"][:4])]
+    same = bool(torch.equal(out["card"][4], out["CPU"][4]))
+    log(f"[whisper] f32 card vs CPU, {B} x {cfg.encoder_seq} frames, a "
+        f"32-token chunk and 8 decode steps: logits {errs[0]:.2e}, probe "
+        f"probs {errs[1]:.2e}, ck {errs[2]:.2e}, cv {errs[3]:.2e}, tokens "
+        f"equal {same}; wall card {walls['card']:.2f} s, CPU "
+        f"{walls['CPU']:.2f} s; card launches {launches}")
+    if max(errs) > 1e-4 or not same:
+        fail(f"whisper-tiny on the card disagrees with the CPU: {errs}, "
+             f"tokens equal {same}")
+    if launches["flash_attention"] != cfg.num_encoder_layers:
+        fail("whisper-tiny: the encoder did not run flash_attention once a "
+             "layer")
+    if launches["decode_attention"] != 8 * cfg.num_layers:
+        fail("whisper-tiny: decode_attention did not run once a layer a "
+             "step")
+    del gpu, cpu, out, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, model, pred = _load(torch, "whisper-tiny")
+    reqs = _requests(cfg, 12, 0)
+    max_len = _max_len(reqs)
+    _describe(reqs, max_len)
+    knobs = dict(mode="real", kv_layout="contig", probe_interval=4,
+                 max_batch=16, max_len=max_len)
+    launches, *_ = _serve(torch, cfg, model, reqs, knobs, pred)
+    if launches["decode_attention"] <= 0:
+        fail("kernel decode_attention never launched on whisper's path")
+
+    masters = model.init_params(seed=0)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 448)))
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    batch = {"tokens": tokens.cuda(), "labels": labels.cuda(),
+             "enc_embeds": torch.from_numpy(rng.standard_normal(
+                 (8, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).cuda()}
+    calls = {True: 0, False: 0}
+    real = ops.flash_attention
+
+    def counted(q, k, v, *, causal=True, **kw):
+        calls[causal] += 1
+        return real(q, k, v, causal=causal, **kw)
+
+    live = {k: v.requires_grad_() for k, v in masters.items()}
+    ops.flash_attention = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, aux = torch.func.functional_call(model, live, (batch,))
+        grads = torch.autograd.grad(loss, list(live.values()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.flash_attention = real
+    train = dict(ops.launches)
+    finite = all(g is None or bool(torch.isfinite(g).all()) for g in grads)
+    log(f"[whisper] forward_train + backward, 8 x 448 tokens over 8 x "
+        f"{cfg.encoder_seq} frames: loss {float(loss.detach()):.4f}, "
+        f"gradients finite {finite}, wall {wall:.3f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"flash_attention non-causal {calls[False]}, causal {calls[True]} "
+        f"(launches {train})")
+    if not (math.isfinite(float(loss.detach())) and finite):
+        fail("whisper-tiny: non-finite training loss or gradient")
+    if (calls[False] != cfg.num_encoder_layers
+            or calls[True] != 2 * cfg.num_layers
+            or train["flash_attention"] != sum(calls.values())):
+        fail(f"whisper-tiny training: flash_attention calls {calls}, "
+             f"launches {train}")
+    return launches
+
+
+def phase_serve_moe(torch):
+    """olmoe-1b-7b at full width and depth (16 layers, d_model 2048, 16/16
+    heads of 128, 64 experts top 8 with d_ff 1024, vocab 50304; random
+    weights from seed 0, matmul weights in bf16): serve granite's 12
+    requests paged (both paged kernels) and contiguous
+    (``decode_attention``), 12 of 12 each; check that ``moe_mlp`` makes no
+    host synchronisation (``torch.cuda.set_sync_debug_mode("error")``) at
+    a decode step's and a prefill chunk's shape; profile one decode
+    megastep and one prefill chunk, their device time split into the
+    attention kernels and the MoE's router, dispatch, expert products and
+    combine; then olmoe-smoke in float32 on the card against the CPU
+    (``phase_reference``). Returns the launches of the two serves."""
+    from repro_torch.models import moe as moe_mod
+    cfg, model, pred = _load(torch, "olmoe-1b-7b")
+    reqs = _requests(cfg, 12, 0)
+    max_len = _max_len(reqs)
+    _describe(reqs, max_len)
+    served = {}
+    for layout, kernels in (("paged", ("paged_decode_attention",
+                                       "paged_decode_attention_multi")),
+                            ("contig", ("decode_attention",))):
+        knobs = dict(mode="real", kv_layout=layout, probe_interval=4,
+                     max_batch=16, max_len=max_len, page_size=16)
+        served[layout], *_ = _serve(torch, cfg, model, reqs, knobs, pred)
+        for name in kernels:
+            if served[layout][name] <= 0:
+                fail(f"kernel {name} never launched on olmoe's {layout} "
+                     f"path")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for B, S in ((16, 1), (16, 256)):
+        h = torch.randn(B, S, cfg.d_model, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe_mod.moe_mlp(cfg, model.layers[0], h)
+        except RuntimeError as e:
+            fail(f"moe_mlp synchronised with the host at {B} x {S}: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ok = bool(torch.isfinite(y).all()) and math.isfinite(float(aux))
+        log(f"[moe] moe_mlp at {B} x {S} tokens (capacity "
+            f"{moe_mod.expert_capacity(cfg, B * S)} an expert): no host "
+            f"sync under set_sync_debug_mode('error'), finite {ok}")
+        if not ok:
+            fail("moe_mlp: non-finite output")
+
+    saved = {n: getattr(moe_mod, n.split(".")[1]) for n in MOE_ANNOTATIONS}
+
+    def labelled(name, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    for name, fn in saved.items():
+        setattr(moe_mod, name.split(".")[1], labelled(name, fn))
+    try:
+        cache = model.init_cache(16, 448, kv_layout="paged", page_size=16)
+        cache["block_table"].copy_(torch.arange(
+            1, 1 + 16 * 28, dtype=torch.int32, device="cuda").reshape(16, 28))
+        phase_profile(torch, model, cache, MOE_ANNOTATIONS)
+    finally:
+        for name, fn in saved.items():
+            setattr(moe_mod, name.split(".")[1], fn)
+    del cache, model, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_reference(torch, (("olmoe-1b-7b", "paged"),
+                            ("olmoe-1b-7b", "contig")))
+    return served
+
+
 def phase_serve_cli(torch):
     """The serving entry point, ``python -m repro_torch.launch.serve``'s
     ``main``, in-process on the card at full width and depth: each run of
@@ -2822,7 +3103,7 @@ def phase_serve_step(torch, cfg, model):
     return launches, cache
 
 
-def phase_profile(torch, model, cache):
+def phase_profile(torch, model, cache, annotations=()):
     """Where a step's time goes: one decode megastep (k=4, 16 rows at ~300
     tokens of context) and one prefill chunk (256 wide, 2 of 16 rows
     active) of a served model, on ``cache`` (16 rows, empty). Wall time is
@@ -2830,7 +3111,8 @@ def phase_profile(torch, model, cache):
     run under ``torch.profiler`` then gives the device busy time (the sum
     of the kernels' durations, one stream) and the kernels that take it.
     Busy over wall is the device's busy share; the rest of the wall time
-    the device sits idle."""
+    the device sits idle. ``annotations`` name ``record_function`` ranges
+    whose device time is reported beside the attention kernels'."""
     B, dev = 16, "cuda"
     name = model.cfg.name
     g = torch.Generator(device=dev).manual_seed(3)
@@ -2848,10 +3130,10 @@ def phase_profile(torch, model, cache):
              "prefill chunk 16x256, 2 rows active":
              lambda: model.prefill_chunk(cache, chunk, valid)}
     for label, fn in cases.items():
-        _profile(torch, name, label, fn)
+        _profile(torch, name, label, fn, annotations)
 
 
-def _profile(torch, name, label, fn):
+def _profile(torch, name, label, fn, annotations=()):
     """Wall time of ``fn`` (the median of three runs on the host clock,
     without the profiler, after a warm run), then one run under
     ``torch.profiler``: the device busy time (the sum of the kernels'
@@ -2872,7 +3154,10 @@ def _profile(torch, name, label, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a record_function range also shows on the device's timeline, as a
+    # span over its kernels: only kernels count as busy time
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name not in annotations]
     if not kernels:
         log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms; the "
             f"profiler saw no device events (busy share not measured)")
@@ -2890,6 +3175,17 @@ def _profile(torch, name, label, fn):
         if i < 6 or re.search(PORT_KERNELS, kname):
             log(f"[profile]   {100 * us / busy:5.1f}% {us / 1e3:8.3f} ms "
                 f"{kname[:90]}")
+    if annotations:
+        parts = {"attention kernels": sum(
+            us for kname, us in by_name.items()
+            if re.search(PORT_KERNELS, kname))}
+        for a in annotations:
+            parts[a] = sum(e.device_time_total for e in prof.events()
+                           if e.name == a and e.device_type == DeviceType.CPU)
+        parts["the rest"] = busy - sum(parts.values())
+        log(f"[profile]   split: " + ", ".join(
+            f"{k} {us / 1e3:.3f} ms ({100 * us / busy:.1f}%)"
+            for k, us in parts.items()))
 
 
 def main():
@@ -2947,6 +3243,12 @@ def main():
     torch.cuda.empty_cache()
     phase_train_ssm(torch)
     phase_serve_cli(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_whisper(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_moe(torch)
 
     kernels = []
     for kname, label, source, replaces, launches in (

@@ -23,10 +23,12 @@ attention and the paged prefill attention go through
 ``repro_torch.kernels.ops`` (the CUDA kernels for tensors on the card,
 their plain versions in ``kernels/ref.py`` on the CPU). The prefill chunk
 of a slot cache attends with ``attend`` in plain torch, as the reference
-does outside any Pallas kernel. The training path's full-sequence causal
-attention (``self_attention_full``) goes through ``ops.flash_attention``
-inside a ``torch.autograd.Function`` whose backward differentiates the
-plain version.
+does outside any Pallas kernel. The training path's full-sequence
+attention (``self_attention_full``: causal in the decoder, non-causal in
+the whisper encoder) goes through ``ops.flash_attention`` inside a
+``torch.autograd.Function`` whose backward differentiates the plain
+version. Cross-attention over the encoder's K/V is plain ``attend``, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -91,6 +93,10 @@ def _scores(cfg: ModelConfig, qg, k, scale: float):
     return s
 
 
+def _differentiable(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, window: int = 0,
            causal: bool = True):
     """q: (B,S,H,hd); k/v: (B,M,KH,hd); q_pos: (B,S); k_pos: (B,M).
@@ -98,9 +104,14 @@ def attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, window: int = 0,
     Returns (B,S,H,hd) in q's dtype. float32 softmax; GQA via head
     grouping; a query with nothing valid comes out as 0. Large S*M takes
     the blocked online-softmax path (O(S*block) memory instead of O(S*M);
-    same semantics).
+    same semantics). Both compute in place to save memory; under autograd
+    (the training path's cross-attention) the dense path runs out of
+    place instead, so that its backward sees what its forward saw.
     """
     S, M = q.shape[1], k.shape[1]
+    if _differentiable(q, k, v):
+        return _attend_dense_autograd(cfg, q, k, v, q_pos, k_pos,
+                                      window=window, causal=causal)
     if S * M > ATTEND_DENSE_LIMIT and M > ATTEND_BLOCK_K:
         return _attend_blocked(cfg, q, k, v, q_pos, k_pos, window=window,
                                causal=causal)
@@ -118,6 +129,22 @@ def _attend_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, window: int,
     m = s.amax(dim=-1, keepdim=True)
     p = s.sub_(m).exp_().masked_fill_(~valid, 0.0)
     p.div_(p.sum(dim=-1, keepdim=True).clamp_min_(1e-30))
+    out = torch.einsum("bkgsm,bmkh->bskgh", p, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _attend_dense_autograd(cfg: ModelConfig, q, k, v, q_pos, k_pos, *,
+                           window: int, causal: bool):
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    qg = q.reshape(B, S, KH, H // KH, hd).float()
+    valid = _mask(q_pos, k_pos, window, causal)
+    s = torch.einsum("bskgh,bmkh->bkgsm", qg, k.float()) * hd ** -0.5
+    if cfg.attn_logit_softcap:
+        s = torch.tanh(s / cfg.attn_logit_softcap) * cfg.attn_logit_softcap
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~valid, 0.0)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bkgsm,bmkh->bskgh", p, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
 
@@ -158,28 +185,34 @@ class FlashAttention(torch.autograd.Function):
     The forward runs the kernel (on the card; the plain version on the CPU)
     and saves q, k and v. The reference has no backward kernel (``jax.grad``
     differentiates its plain ``attend``), so the backward recomputes the
-    plain version under autograd and returns its dq, dk and dv.
+    plain version under autograd and returns its dq, dk and dv. ``causal``
+    (default on) is off for the whisper encoder's self-attention.
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int, softcap: float):
+    def forward(ctx, q, k, v, window: int, softcap: float,
+                causal: bool = True):
         ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.softcap = window, softcap
-        return ops.flash_attention(q, k, v, window=window, softcap=softcap)
+        ctx.window, ctx.softcap, ctx.causal = window, softcap, causal
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
         with torch.enable_grad():
-            out = ref.flash_attention_ref(q, k, v, window=ctx.window,
+            out = ref.flash_attention_ref(q, k, v, causal=ctx.causal,
+                                          window=ctx.window,
                                           softcap=ctx.softcap)
         dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def self_attention_full(cfg: ModelConfig, p, h, *, window: int = 0):
-    """Training-path attention: causal over whole sequences at positions
-    0..S-1. h: (B,S,d) -> (B,S,d); ``p`` holds the projections."""
+def self_attention_full(cfg: ModelConfig, p, h, *, window: int = 0,
+                        causal: bool = True):
+    """Training-path attention over whole sequences at positions 0..S-1:
+    causal for the decoder, not for the whisper encoder. h: (B,S,d) ->
+    (B,S,d); ``p`` holds the projections."""
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
@@ -188,8 +221,47 @@ def self_attention_full(cfg: ModelConfig, p, h, *, window: int = 0):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                               window, cfg.attn_logit_softcap)
+                               window, cfg.attn_logit_softcap, causal)
     return out.reshape(B, S, cfg.q_dim) @ p.wo.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder -> encoder output)
+# ---------------------------------------------------------------------------
+
+def cross_kv(cfg: ModelConfig, p, enc_out):
+    """The encoder's K/V for one decoder layer's cross-attention, computed
+    once per request batch. enc_out: (B,T,d) -> k, v: (B,T,KH,hd). ``p``
+    holds that layer's cross projections (``wk``/``wv``, and ``bk``/``bv``
+    under ``cfg.qkv_bias``)."""
+    B, T = enc_out.shape[:2]
+    dt = enc_out.dtype
+    k = enc_out @ p.wk.to(dt)
+    v = enc_out @ p.wv.to(dt)
+    if cfg.qkv_bias:
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
+    return (k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim))
+
+
+def cross_attention(cfg: ModelConfig, p, h, ck, cv):
+    """h: (B,S,d) decoder states; ck/cv: (B,T,KH,hd) -> (B,S,d).
+
+    Non-causal over all T keys, in plain torch (``attend``) as in the
+    reference: the ``flash_attention`` kernel takes K/V only as long as
+    its queries."""
+    B, S = h.shape[:2]
+    dt = h.dtype
+    q = h @ p.wq.to(dt)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(dt)
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    T = ck.shape[1]
+    qp = torch.zeros((B, S), dtype=torch.int32, device=h.device)
+    kp = torch.zeros((B, T), dtype=torch.int32, device=h.device)
+    out = attend(cfg, q, ck, cv, qp, kp, causal=False)
+    return out.reshape(B, S, cfg.q_dim) @ p.wo.to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Shared primitives: norms, RoPE, the gated-SiLU MLP, softcap, embeddings.
+"""Shared primitives: norms, RoPE, the MLPs, softcap, embeddings.
 
 Compute happens in ``cfg.dtype`` with float32 norm accumulation and float32
 RoPE, as in the reference ``repro.models.layers``. Every matmul casts its
@@ -46,10 +46,23 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
-def apply_norm(cfg: ModelConfig, scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The decoder norm (RMSNorm; LayerNorm archs are not ported yet)."""
+def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm (population variance, gain ``scale`` itself, then
+    ``bias``) with float32 accumulation, cast back to ``x.dtype``."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, scale: torch.Tensor, x: torch.Tensor,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The family's norm: LayerNorm with ``bias`` for the audio family
+    (whisper), RMSNorm otherwise."""
     if cfg.family == "audio":
-        raise NotImplementedError("LayerNorm (audio family) is not ported")
+        return layer_norm(scale, bias, x, cfg.norm_eps)
     return rms_norm(scale, x, cfg.norm_eps)
 
 
@@ -86,6 +99,16 @@ def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """Gated-SiLU MLP: ``(silu(x Wg) * x Wu) Wd`` in the compute dtype."""
     dt = x.dtype
     return (F.silu(x @ w_gate.to(dt)) * (x @ w_up.to(dt))) @ w_down.to(dt)
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """Whisper's biased MLP: ``gelu(x Wu + bu) Wd + bd`` with the tanh
+    approximation of GELU (``jax.nn.gelu``'s default), in the compute
+    dtype."""
+    dt = x.dtype
+    h = F.gelu(x @ w_up.to(dt) + b_up.to(dt), approximate="tanh")
+    return h @ w_down.to(dt) + b_down.to(dt)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

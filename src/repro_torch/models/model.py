@@ -1,5 +1,6 @@
-"""The model: a decoder (GQA attention, Mamba-2 SSM or hybrid layers) with
-the fused TRAIL probe.
+"""The model: a decoder (GQA attention, mixture-of-experts, Mamba-2 SSM or
+hybrid layers; with whisper's encoder and cross-attention) with the fused
+TRAIL probe.
 
 ``Model(cfg, device=...)`` is an ``nn.Module`` with one ``Block`` per layer
 and exposes the forward passes of the reference
@@ -10,9 +11,12 @@ and exposes the forward passes of the reference
                                               float32 tensors (training masters)
   forward_train(batch)                     -> (loss, {"aux_loss", "tap", "n_tok"})
   forward_all_taps(batch)                  -> hidden states after every layer
+  encode(enc_embeds)                       -> enc_out (encoder-decoder only)
+  build_cross_cache(cache, enc_out)        -> cache with each layer's ck/cv
   init_cache(batch, max_len, kv_layout)    -> cache dict ("contig" slot
                                               caches or "paged" KV pool)
-  prefill_chunk(cache, tokens, valid)      -> (logits_last, cache, tap_sum, n_new)
+  prefill_chunk(cache, tokens, valid, enc_embeds=)
+                                           -> (logits_last, cache, tap_sum, n_new)
   decode_step(cache, tokens, active)       -> (logits, cache, tap, probe_logits)
   decode_multi(cache, tokens, active, budget, k=, eos_id=)
                                            -> (tokens, cache, probe_probs, n_emitted)
@@ -21,12 +25,17 @@ The parameters live on the model, so no method takes them; training runs
 ``forward_train`` (the module's ``forward``) through
 ``torch.func.functional_call`` with float32 masters in their place. The
 cache is updated in place and also returned. Global (``KIND_ATTN``),
-sliding-window (``KIND_LOCAL``), Mamba-2 (``KIND_SSM``) and hybrid
-(``KIND_HYBRID``) stacks are ported, with learned positions, so the gemma,
-mamba2 and hymba configs run; MoE layers, ``kv_quant``, cross-attention
-and prefix embeds raise ``NotImplementedError``. The SSM layers' gradient
-comes from ``models.ssm.SSDScan``: the scan kernel runs forward, and the
-backward differentiates its plain version, on the card as on the CPU.
+sliding-window (``KIND_LOCAL``), mixture-of-experts (``KIND_MOE``, with
+arctic's dense residual), Mamba-2 (``KIND_SSM``) and hybrid
+(``KIND_HYBRID``) stacks are ported, with learned positions, and the
+encoder-decoder (whisper: LayerNorm, the biased GELU MLP, a non-causal
+encoder through the ``flash_attention`` kernel, cross-attention over its
+output), so the gemma, olmoe, arctic, mamba2, hymba and whisper configs
+run; ``kv_quant``, prefix embeds and the paged layout of a
+cross-attention model raise ``NotImplementedError``. The SSM layers'
+gradient comes from ``models.ssm.SSDScan``: the scan kernel runs forward,
+and the backward differentiates its plain version, on the card as on the
+CPU.
 
 ``params_from_jax`` and ``load_npz`` bring the reference package's weights
 across (as numpy arrays or from its ``.npz`` checkpoint format) without
@@ -42,11 +51,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import KIND_HYBRID, KIND_SSM, ModelConfig
+from repro_torch.config import (FAMILY_AUDIO, KIND_ATTN, KIND_HYBRID,
+                                KIND_MOE, KIND_SSM, ModelConfig)
 from repro_torch.core import predictor
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (apply_norm, embed_tokens, pdtype,
-                                       unembed)
+from repro_torch.models.layers import (apply_norm, cdtype, embed_tokens,
+                                       pdtype, unembed)
 from repro_torch.training.checkpoint import load_npz  # noqa: F401 (re-export)
 
 MAX_LEARNED_POS = 32768     # rows of the learned-position table
@@ -60,12 +71,31 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{', '.join(tfm.PORTED_KINDS)})")
     if cfg.kv_quant:
         raise NotImplementedError(f"{cfg.name}: kv_quant is not ported")
-    if cfg.cross_attention or cfg.num_encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: cross-attention is not ported")
     if cfg.num_prefix_tokens:
         raise NotImplementedError(f"{cfg.name}: prefix embeds are not ported")
-    if cfg.family == "audio":
-        raise NotImplementedError(f"{cfg.name}: LayerNorm is not ported")
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder: learned positions over ``encoder_seq`` frames
+    (``pos``), ``num_encoder_layers`` attention blocks without
+    cross-attention, and a final norm (``final_norm``, ``final_norm_bias``
+    under the audio family's LayerNorm). Parameters are created empty."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        pd = pdtype(cfg)
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=pd, device=device),
+                                requires_grad=False)
+
+        self.pos = param(cfg.encoder_seq, cfg.d_model)
+        self.layers = nn.ModuleList(
+            tfm.make_block(cfg, KIND_ATTN, device)
+            for _ in range(cfg.num_encoder_layers))
+        self.final_norm = param(cfg.d_model)
+        if cfg.family == FAMILY_AUDIO:
+            self.final_norm_bias = param(cfg.d_model)
 
 
 class Model(nn.Module):
@@ -97,8 +127,14 @@ class Model(nn.Module):
         if not cfg.use_rope:        # learned positions
             self.pos_embed = param(MAX_LEARNED_POS, d, dtype=pd)
         self.final_norm = param(d, dtype=pd)
-        self.layers = nn.ModuleList(tfm.make_block(cfg, kind, self.device)
-                                    for kind in cfg.layer_kinds)
+        if cfg.family == FAMILY_AUDIO:
+            self.final_norm_bias = param(d, dtype=pd)
+        self.layers = nn.ModuleList(
+            tfm.make_block(cfg, kind, self.device,
+                           cross=cfg.cross_attention)
+            for kind in cfg.layer_kinds)
+        if cfg.num_encoder_layers:
+            self.encoder = Encoder(cfg, self.device)
         pc = cfg.probe
         self.probe = nn.ParameterDict({
             "w1": param(d, pc.hidden), "b1": param(pc.hidden),
@@ -114,9 +150,10 @@ class Model(nn.Module):
         The distributions are the reference's (``model.py`` init): embedding
         and learned-position rows N(0, 0.02^2); projections N(0, 1/fan_in)
         with ``wo``, ``w_down`` and the SSM's ``out_proj`` at their own
-        fan-in; the SSM's ``conv_w`` N(0, 1/W), its ``D`` ones and its
-        ``conv_b``, ``dt_bias``, ``A_log`` and ``norm_scale`` zeros; zero
-        norm gains and biases; probe weights N(0, 1/fan_in).
+        fan-in, the experts' and the router's too; the SSM's ``conv_w``
+        N(0, 1/W), its ``D`` ones and its ``conv_b``, ``dt_bias``,
+        ``A_log`` and ``norm_scale`` zeros; zero RMSNorm gains, unit
+        LayerNorm gains; zero biases; probe weights N(0, 1/fan_in).
         """
         cfg = self.cfg
         dev = self.device
@@ -127,39 +164,69 @@ class Model(nn.Module):
             return name, torch.randn(params[name].shape, generator=gen,
                                      dtype=torch.float32, device=dev) * scale
 
-        def zeros(name):
-            return name, torch.zeros(params[name].shape, dtype=torch.float32,
-                                     device=dev)
+        def filled(name, value):
+            return name, torch.full(params[name].shape, value,
+                                    dtype=torch.float32, device=dev)
 
-        yield normal("embed", 0.02)
-        if not cfg.tie_embeddings:
-            yield normal("unembed", 0.02)
-        if not cfg.use_rope:
-            yield normal("pos_embed", 0.02)
-        yield zeros("final_norm")
+        def zeros(name):
+            return filled(name, 0.0)
+
+        def norm(name):
+            if name + "_bias" in params:        # LayerNorm: unit gain
+                return [filled(name, 1.0), zeros(name + "_bias")]
+            return [zeros(name)]                # RMSNorm: 1 + scale
+
         d, qd, ff = cfg.d_model, cfg.q_dim, cfg.d_ff
         d_in = cfg.ssm_expand * d
-        for li, kind in enumerate(cfg.layer_kinds):
-            pre = f"layers.{li}."
-            yield zeros(pre + "norm1")
+
+        def block(pre, kind):
+            yield from norm(pre + "norm1")
             if kind in (KIND_SSM, KIND_HYBRID):
                 yield normal(pre + "in_proj", d ** -0.5)
                 yield normal(pre + "out_proj", d_in ** -0.5)
                 yield normal(pre + "conv_w", cfg.ssm_conv ** -0.5)
                 for name in ("conv_b", "dt_bias", "A_log", "norm_scale"):
                     yield zeros(pre + name)
-                yield pre + "D", torch.ones(params[pre + "D"].shape,
-                                            dtype=torch.float32, device=dev)
+                yield filled(pre + "D", 1.0)
             if kind == KIND_SSM:
-                continue
-            yield zeros(pre + "norm2")
-            for w in ("wq", "wk", "wv", "w_gate", "w_up"):
+                return
+            yield from norm(pre + "norm2")
+            mlp_in = [w for w in ("w_gate", "w_up") if pre + w in params]
+            for w in ("wq", "wk", "wv", *mlp_in):
                 yield normal(pre + w, d ** -0.5)
             yield normal(pre + "wo", qd ** -0.5)
-            yield normal(pre + "w_down", ff ** -0.5)
-            if cfg.qkv_bias:
-                for b in ("bq", "bk", "bv"):
+            if pre + "w_down" in params:
+                yield normal(pre + "w_down", ff ** -0.5)
+            for b in ("bq", "bk", "bv", "b_up", "b_down"):
+                if pre + b in params:
                     yield zeros(pre + b)
+            if kind == KIND_MOE:
+                yield normal(pre + "moe_router", d ** -0.5)
+                yield normal(pre + "moe_w_gate", d ** -0.5)
+                yield normal(pre + "moe_w_up", d ** -0.5)
+                yield normal(pre + "moe_w_down", ff ** -0.5)
+            if pre + "cross_wq" in params:
+                for w in ("wq", "wk", "wv"):
+                    yield normal(pre + "cross_" + w, d ** -0.5)
+                yield normal(pre + "cross_wo", qd ** -0.5)
+                for b in ("bq", "bk", "bv"):
+                    if pre + "cross_" + b in params:
+                        yield zeros(pre + "cross_" + b)
+                yield from norm(pre + "norm_cross")
+
+        yield normal("embed", 0.02)
+        if not cfg.tie_embeddings:
+            yield normal("unembed", 0.02)
+        if not cfg.use_rope:
+            yield normal("pos_embed", 0.02)
+        yield from norm("final_norm")
+        for li, kind in enumerate(cfg.layer_kinds):
+            yield from block(f"layers.{li}.", kind)
+        if cfg.num_encoder_layers:
+            yield normal("encoder.pos", 0.02)
+            for li in range(cfg.num_encoder_layers):
+                yield from block(f"encoder.layers.{li}.", KIND_ATTN)
+            yield from norm("encoder.final_norm")
         probe = predictor.init_probe(gen, d, cfg.probe, device=dev)
         for name, value in probe.items():
             yield f"probe.{name}", value
@@ -182,14 +249,6 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # Training forward (full sequences, no cache)
     # ------------------------------------------------------------------
-    def _block_weights(self, li: int):
-        """Layer ``li``'s weights as they are now (the masters inside
-        ``functional_call``). A checkpointed block is recomputed in the
-        backward, after ``functional_call`` has put the module's own
-        parameters back, so it is handed the tensors themselves."""
-        return types.SimpleNamespace(**dict(
-            self.layers[li].named_parameters()))
-
     def _embed(self, tokens, positions):
         """Token rows in the compute dtype, plus the learned position rows
         (positions clipped to the table) where the config has no RoPE."""
@@ -199,47 +258,95 @@ class Model(nn.Module):
             h = h + self.pos_embed[idx].to(h.dtype)
         return h
 
-    def _train_trunk(self, tokens):
-        """Yield the hidden state after every layer (B,S,d), train-path
-        semantics: causal attention over positions 0..S-1."""
+    def encode(self, enc_embeds):
+        """Run the encoder over frontend embeddings (B,T,d) -> (B,T,d) in
+        the compute dtype: learned positions, then each block's
+        non-causal self-attention (the ``flash_attention`` kernel) and
+        MLP, then the encoder's final norm."""
+        cfg = self.cfg
+        if not cfg.num_encoder_layers:
+            raise ValueError(f"{cfg.name} has no encoder")
+        enc = self.encoder
+        h = enc_embeds.to(cdtype(cfg))
+        h = h + enc.pos[None, :h.shape[1]].to(h.dtype)
+        for blk in enc.layers:
+            h, _ = tfm.block_train(cfg, KIND_ATTN, _weights(blk), h,
+                                   causal=False)
+        return _final_norm(cfg, enc, h)
+
+    @torch.no_grad()
+    def build_cross_cache(self, cache: dict, enc_out):
+        """Fill each cross-attention layer's ``ck``/``cv`` from the encoder
+        output (B,T,d); the leaves are replaced by tensors of B rows and T
+        keys. Returns the cache."""
+        cfg = self.cfg
+        for ri, (kinds, nb) in enumerate(self.runs):
+            for j, sub in enumerate(cache[f"run_{ri}"]):
+                if "ck" not in sub:
+                    continue
+                lis = [li for li, slot in enumerate(self.slots)
+                       if slot[:2] == (ri, j)]          # in block order
+                kvs = [attn.cross_kv(cfg, tfm.cross_weights(self.layers[li]),
+                                     enc_out) for li in lis]
+                sub["ck"] = torch.stack([k for k, _ in kvs])
+                sub["cv"] = torch.stack([v for _, v in kvs])
+        return cache
+
+    def _train_trunk(self, tokens, enc_out=None):
+        """Yield (hidden state, router aux loss) after every layer (B,S,d),
+        train-path semantics: causal attention over positions 0..S-1,
+        cross-attention over ``enc_out`` where given."""
         cfg = self.cfg
         S = tokens.shape[1]
         h = self._embed(tokens, torch.arange(S, device=tokens.device)
                         .expand(tokens.shape))
         remat = cfg.remat and torch.is_grad_enabled()
         for li, kind in enumerate(cfg.layer_kinds):
-            w = self._block_weights(li)
+            w = _weights(self.layers[li])
             if remat:
-                h = checkpoint(tfm.block_train, cfg, kind, w, h,
-                               use_reentrant=False)
+                h, aux = checkpoint(tfm.block_train, cfg, kind, w, h,
+                                    enc_out, use_reentrant=False)
             else:
-                h = tfm.block_train(cfg, kind, w, h)
-            yield h
+                h, aux = tfm.block_train(cfg, kind, w, h, enc_out)
+            yield h, aux
+
+    def _encoder_out(self, batch: dict):
+        """The encoder's output for ``batch["enc_embeds"]``, if given;
+        other frontend inputs (prefix embeds) are refused."""
+        extra = set(batch) - {"tokens", "labels", "enc_embeds"}
+        if extra:
+            raise NotImplementedError(
+                f"batch keys {sorted(extra)} (prefix embeds) are not ported")
+        if "enc_embeds" in batch:
+            return self.encode(batch["enc_embeds"])
+        return None
 
     def forward_train(self, batch: dict):
         """batch: {"tokens": (B,S), "labels": (B,S)} int (labels -1 where no
-        loss is taken).
+        loss is taken), and for an encoder-decoder optionally
+        ``"enc_embeds"`` (B,T,d), run through the encoder first.
 
         Returns (loss, {"aux_loss", "tap" (B,S,d), "n_tok"}): the mean
-        next-token cross-entropy over labels >= 0, the tap layer's hidden
-        state and the number of such labels. With ``cfg.remat`` and grad
-        on, each block is recomputed in the backward
+        next-token cross-entropy over labels >= 0 plus
+        ``router_aux_weight`` times the summed MoE router aux losses
+        (``aux_loss``; 0 without MoE), the tap layer's hidden state and
+        the number of such labels. With ``cfg.remat`` and grad on, each
+        decoder block is recomputed in the backward
         (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
         """
-        if set(batch) - {"tokens", "labels"}:
-            raise NotImplementedError(
-                f"batch keys {sorted(set(batch) - {'tokens', 'labels'})} "
-                "(prefix or encoder embeds) are not ported")
+        enc_out = self._encoder_out(batch)
         tap = h = None
-        for li, h in enumerate(self._train_trunk(batch["tokens"])):
+        aux_total = torch.zeros((), device=batch["tokens"].device)
+        for li, (h, aux) in enumerate(self._train_trunk(batch["tokens"],
+                                                        enc_out)):
+            aux_total = aux_total + aux
             if li == self.tap_layer:
                 tap = h
-        h = apply_norm(self.cfg, self.final_norm, h)
+        h = _final_norm(self.cfg, self, h)
         loss, n_tok = _chunked_ce(self.cfg, self._unembed_table(), h,
                                   batch["labels"])
-        aux = {"aux_loss": torch.zeros((), device=loss.device), "tap": tap,
-               "n_tok": n_tok}
-        return loss, aux
+        aux = {"aux_loss": aux_total, "tap": tap, "n_tok": n_tok}
+        return loss + self.cfg.router_aux_weight * aux_total, aux
 
     def forward(self, batch: dict):
         """The module call is the training forward (``forward_train``): it
@@ -250,7 +357,9 @@ class Model(nn.Module):
         """Profiling pass (paper Section 3.1: embeddings of every layer):
         the hidden state after every layer, (num_layers, B, S, d), with
         train-path semantics and no loss."""
-        return torch.stack(list(self._train_trunk(batch["tokens"])))
+        enc_out = self._encoder_out(batch)
+        return torch.stack([h for h, _ in self._train_trunk(batch["tokens"],
+                                                            enc_out)])
 
     # ------------------------------------------------------------------
     # Cache
@@ -263,9 +372,15 @@ class Model(nn.Module):
         global-attention K/V in a shared page pool (1 null page + batch *
         ceil(max_len/page_size) pages) behind a (batch, pages_per_seq)
         block table. Windowed layers keep their ring slots under either.
+        Cross-attention layers hold zeroed ``ck``/``cv`` of ``encoder_seq``
+        keys (contiguous layout only), as the reference's do.
         """
         if kv_layout not in ("contig", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if kv_layout == "paged" and self.cfg.cross_attention:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the paged layout of a cross-attention "
+                "model is not ported")
         cache: dict = {"lengths": torch.zeros(batch, dtype=torch.int32,
                                               device=self.device)}
         num_pages = 0
@@ -277,6 +392,7 @@ class Model(nn.Module):
         for ri, (kinds, nb) in enumerate(self.runs):
             cache[f"run_{ri}"] = tuple(
                 tfm.init_run_cache(self.cfg, kind, nb, batch, max_len,
+                                   enc_seq=self.cfg.encoder_seq,
                                    kv_layout=kv_layout, num_pages=num_pages,
                                    page_size=page_size, device=self.device)
                 for kind in kinds)
@@ -302,18 +418,23 @@ class Model(nn.Module):
         return self.embed if self.cfg.tie_embeddings else self.unembed
 
     @torch.no_grad()
-    def prefill_chunk(self, cache: dict, tokens, valid=None):
+    def prefill_chunk(self, cache: dict, tokens, valid=None,
+                      enc_embeds=None):
         """Process a chunk of prompt tokens for every active row.
 
-        tokens: (B,C) int; valid: (B,C) bool (contiguous prefixes) or None.
-        Returns (next_logits (B,V) f32, cache, tap_sum (B,d) f32,
-        n_new (B,) int32).
+        tokens: (B,C) int; valid: (B,C) bool (contiguous prefixes) or None;
+        enc_embeds: (B,T,d) frontend embeddings of an encoder-decoder, run
+        through the encoder into the cross caches first (``encode``, then
+        ``build_cross_cache``). Returns (next_logits (B,V) f32, cache,
+        tap_sum (B,d) f32, n_new (B,) int32).
         """
         cfg = self.cfg
         B, C = tokens.shape
         if valid is None:
             valid = torch.ones((B, C), dtype=torch.bool, device=tokens.device)
         offsets = cache["lengths"]
+        if enc_embeds is not None:
+            cache = self.build_cross_cache(cache, self.encode(enc_embeds))
         q_pos = torch.where(
             valid, offsets[:, None] + torch.arange(C, dtype=torch.int32,
                                                    device=tokens.device), -1)
@@ -324,7 +445,7 @@ class Model(nn.Module):
         # next-token logits from the last valid position of each row
         last_idx = (n_new - 1).clamp_min(0).long()
         h_last = h[torch.arange(B, device=h.device), last_idx]
-        h_last = apply_norm(cfg, self.final_norm, h_last)
+        h_last = _final_norm(cfg, self, h_last)
         logits = unembed(cfg, self._unembed_table(), h_last)
 
         # paper: prompt-phase probe input = mean of prompt-token taps
@@ -347,7 +468,7 @@ class Model(nn.Module):
         h, tap = self._trunk(cache, self._embed(tokens, q_pos), q_pos,
                              decode=True)
         cache["lengths"] = lengths + active.to(torch.int32)
-        hn = apply_norm(cfg, self.final_norm, h[:, 0])
+        hn = _final_norm(cfg, self, h[:, 0])
         return unembed(cfg, self._unembed_table(), hn), cache, tap[:, 0]
 
     @torch.no_grad()
@@ -399,6 +520,13 @@ class Model(nn.Module):
         return torch.stack(toks, 1), cache, torch.stack(probs, 1), emitted
 
 
+def _final_norm(cfg: ModelConfig, owner: nn.Module, h):
+    """The final norm of ``owner`` (the model or its encoder), with its
+    bias under the audio family's LayerNorm."""
+    return apply_norm(cfg, owner.final_norm, h,
+                      getattr(owner, "final_norm_bias", None))
+
+
 def _ce_chunk(cfg: ModelConfig, table, hc, lc):
     """Masked NLL sum and label count of one sequence chunk."""
     logits = unembed(cfg, table, hc)                       # (B,chunk,V) f32
@@ -435,9 +563,20 @@ def _chunked_ce(cfg: ModelConfig, table, h, labels, chunk: int = 256):
 # ---------------------------------------------------------------------------
 
 _ATTN_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-_MLP_NAMES = ("w_gate", "w_up", "w_down")
 _SSM_NAMES = ("in_proj", "out_proj", "conv_w", "conv_b", "dt_bias", "A_log",
               "D", "norm_scale")
+_NORMS = ("norm1", "norm2", "norm_cross")
+_GROUP_PREFIX = {"attn": "", "mlp": "", "ssm": "", "cross": "cross_",
+                 "moe": "moe_"}
+
+
+def _weights(module: nn.Module):
+    """A block's weights as they are now (the masters inside
+    ``functional_call``), as attributes of a namespace. A checkpointed
+    block is recomputed in the backward, after ``functional_call`` has put
+    the module's own parameters back, so it is handed the tensors
+    themselves."""
+    return types.SimpleNamespace(**dict(module.named_parameters()))
 
 
 def _to_torch(x) -> torch.Tensor:
@@ -449,34 +588,76 @@ def _to_torch(x) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def _block_from_tree(p, i: int, pre: str, out: dict) -> None:
+    """Block ``i`` of a stacked reference block tree ``p`` into ``out``
+    under the port's names: ``norm1`` -> ``norm1`` (and its LayerNorm
+    bias -> ``norm1_bias``), ``attn``/``mlp``/``ssm`` leaves keep their
+    names, ``cross.*`` -> ``cross_*``, ``moe.*`` -> ``moe_*``."""
+    for group, leaves in p.items():
+        for leaf, value in leaves.items():
+            if group in _NORMS:
+                name = group if leaf == "scale" else f"{group}_{leaf}"
+            else:
+                name = _GROUP_PREFIX[group] + leaf
+            out[pre + name] = _to_torch(value[i])
+
+
+def _block_tree(names, stack) -> dict:
+    """The reference block tree of a block whose port names are ``names``
+    (the inverse of ``_block_from_tree``); ``stack(name)`` gives the
+    stacked leaf."""
+    ssm = set(_SSM_NAMES)
+    p: dict = {}
+    for name in names:
+        norm = name.removesuffix("_bias")
+        if norm in _NORMS:
+            group, leaf = norm, "bias" if name != norm else "scale"
+        elif name.startswith(("cross_", "moe_")):
+            group, leaf = name.split("_", 1)
+        elif name in ssm:
+            group, leaf = "ssm", name
+        elif name in _ATTN_NAMES:
+            group, leaf = "attn", name
+        else:
+            group, leaf = "mlp", name
+        p.setdefault(group, {})[leaf] = stack(name)
+    return p
+
+
+def _norm_tree(params: dict, name: str) -> dict:
+    tree = {"scale": params[name]}
+    if name + "_bias" in params:
+        tree["bias"] = params[name + "_bias"]
+    return tree
+
+
 def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
     """Map the reference parameter pytree onto this model's state dict.
 
     ``tree`` is the reference ``Model.init`` output (or a restored
     checkpoint) with numpy (or torch) leaves. Per-run stacked layer params
-    are un-stacked into one entry per layer. The result loads with
+    are un-stacked into one entry per layer, the encoder's stacked layers
+    into ``encoder.layers.<i>``. The result loads with
     ``model.load_state_dict(...)``, which casts each tensor to the
     parameter's dtype.
     """
-    out = {"embed": _to_torch(tree["embed"]),
-           "final_norm": _to_torch(tree["final_norm"]["scale"])}
+    out = {"embed": _to_torch(tree["embed"])}
+    for name, node in (("final_norm", tree["final_norm"]),
+                       ("encoder.final_norm",
+                        tree.get("encoder", {}).get("final_norm"))):
+        for leaf, value in (node or {}).items():
+            out[name if leaf == "scale" else f"{name}_{leaf}"] = \
+                _to_torch(value)
     for name in ("unembed", "pos_embed"):
         if name in tree:
             out[name] = _to_torch(tree[name])
     for li, (ri, j, i) in enumerate(tfm.layer_slots(cfg)):
-        p = tree["layers"][ri][j]
-        pre = f"layers.{li}."
-        out[pre + "norm1"] = _to_torch(p["norm1"]["scale"][i])
-        if "attn" in p:
-            out[pre + "norm2"] = _to_torch(p["norm2"]["scale"][i])
-            for name in _ATTN_NAMES:
-                if name in p["attn"]:
-                    out[pre + name] = _to_torch(p["attn"][name][i])
-            for name in _MLP_NAMES:
-                out[pre + name] = _to_torch(p["mlp"][name][i])
-        if "ssm" in p:
-            for name in _SSM_NAMES:
-                out[pre + name] = _to_torch(p["ssm"][name][i])
+        _block_from_tree(tree["layers"][ri][j], i, f"layers.{li}.", out)
+    if "encoder" in tree:
+        out["encoder.pos"] = _to_torch(tree["encoder"]["pos"])
+        for li in range(cfg.num_encoder_layers):
+            _block_from_tree(tree["encoder"]["layers"], li,
+                             f"encoder.layers.{li}.", out)
     for name in ("w1", "b1", "w2", "b2"):
         out[f"probe.{name}"] = _to_torch(tree["probe"][name])
     return out
@@ -486,36 +667,33 @@ def params_to_jax(cfg: ModelConfig, params: dict) -> dict:
     """The inverse of ``params_from_jax``: the reference parameter tree
     (the structure of its ``Model.init`` output) from this model's state
     dict or float32 masters. Per-layer entries are stacked back into one
-    leaf per run and pattern position; leaves stay torch tensors.
-    ``training.checkpoint.save`` writes the tree in the reference's
-    ``.npz`` format."""
+    leaf per run and pattern position (the encoder's into one stack);
+    leaves stay torch tensors. ``training.checkpoint.save`` writes the
+    tree in the reference's ``.npz`` format."""
     tree = {"embed": params["embed"],
-            "final_norm": {"scale": params["final_norm"]}}
+            "final_norm": _norm_tree(params, "final_norm")}
     for name in ("unembed", "pos_embed"):
         if name in params:
             tree[name] = params[name]
-    slots = tfm.layer_slots(cfg)
-    layers = []
-    for ri, (kinds, _) in enumerate(tfm.split_runs(cfg)):
-        sub = []
-        for j, kind in enumerate(kinds):
-            lis = [li for li, (r, jj, _) in enumerate(slots)
-                   if (r, jj) == (ri, j)]          # in block order
 
-            def stack(name, lis=lis):
-                return torch.stack([params[f"layers.{li}.{name}"]
-                                    for li in lis])
-            p = {"norm1": {"scale": stack("norm1")}}
-            if kind != KIND_SSM:
-                p["attn"] = {name: stack(name) for name in _ATTN_NAMES
-                             if f"layers.{lis[0]}.{name}" in params}
-                p["norm2"] = {"scale": stack("norm2")}
-                p["mlp"] = {name: stack(name) for name in _MLP_NAMES}
-            if kind in (KIND_SSM, KIND_HYBRID):
-                p["ssm"] = {name: stack(name) for name in _SSM_NAMES}
-            sub.append(p)
-        layers.append(tuple(sub))
-    tree["layers"] = tuple(layers)
+    def block(lis, pre):
+        first = f"{pre}{lis[0]}."
+        names = [k[len(first):] for k in params if k.startswith(first)]
+        return _block_tree(names, lambda name: torch.stack(
+            [params[f"{pre}{li}.{name}"] for li in lis]))
+
+    slots = tfm.layer_slots(cfg)
+    tree["layers"] = tuple(
+        tuple(block([li for li, (r, jj, _) in enumerate(slots)
+                     if (r, jj) == (ri, j)], "layers.")     # in block order
+              for j in range(len(kinds)))
+        for ri, (kinds, _) in enumerate(tfm.split_runs(cfg)))
+    if cfg.num_encoder_layers:
+        tree["encoder"] = {
+            "pos": params["encoder.pos"],
+            "layers": block(list(range(cfg.num_encoder_layers)),
+                            "encoder.layers."),
+            "final_norm": _norm_tree(params, "encoder.final_norm")}
     tree["probe"] = {name: params[f"probe.{name}"]
                      for name in ("w1", "b1", "w2", "b2")}
     return tree

@@ -1,5 +1,6 @@
 """Decoder blocks and run utilities (attention, sliding-window attention,
-Mamba-2 SSM and hybrid layers).
+mixture-of-experts, Mamba-2 SSM and hybrid layers, and whisper's
+cross-attention).
 
 A "run" is a maximal stretch of layers of one repeating pattern, split
 additionally at the probe tap so the tap always ends a run. The reference
@@ -10,17 +11,22 @@ stacked along a leading layer axis as in the reference.
 
 from __future__ import annotations
 
+import types
+
 import torch
 from torch import nn
 
-from repro_torch.config import (KIND_ATTN, KIND_HYBRID, KIND_LOCAL, KIND_SSM,
-                                ModelConfig)
+from repro_torch.config import (FAMILY_AUDIO, KIND_ATTN, KIND_HYBRID,
+                                KIND_LOCAL, KIND_MOE, KIND_SSM, ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import apply_norm, cdtype, gated_mlp, pdtype
+from repro_torch.models.layers import (apply_norm, cdtype, gated_mlp,
+                                       gelu_mlp, pdtype)
 
 MAX_PATTERN = 8          # longest repeating block grouped as one run
-PORTED_KINDS = (KIND_ATTN, KIND_LOCAL, KIND_SSM, KIND_HYBRID)
+PORTED_KINDS = (KIND_ATTN, KIND_LOCAL, KIND_SSM, KIND_HYBRID, KIND_MOE)
+CROSS_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
 def _segment_runs(kinds: tuple[str, ...]) -> list[tuple[tuple[str, ...], int]]:
@@ -124,69 +130,148 @@ class SSMBlock(nn.Module):
 
 
 class Block(nn.Module):
-    """One decoder block: RMSNorm, GQA attention, gated MLP.
+    """One decoder block: norm, attention, MLP.
 
     ``KIND_ATTN`` and ``KIND_LOCAL`` blocks hold the same parameters; a
     local block attends within the config's sliding window. A
     ``KIND_HYBRID`` block (hymba) adds a Mamba-2 mixer that reads the same
-    normed input as its windowed attention.
+    normed input as its windowed attention. A ``KIND_MOE`` block holds the
+    router and the stacked experts (``moe_router``, ``moe_w_gate``,
+    ``moe_w_up``, ``moe_w_down``) in place of the MLP, and beside them the
+    dense MLP under ``cfg.moe_dense_residual`` (arctic). The audio family
+    (whisper) has LayerNorms (a ``<norm>_bias`` beside each scale) and the
+    biased GELU MLP (``w_up``, ``b_up``, ``w_down``, ``b_down``); with
+    ``cross`` a decoder block adds cross-attention over the encoder
+    (``cross_wq`` ... ``cross_wo`` and ``norm_cross``).
 
-    Matmul weights are held in the compute dtype, norm scales in the
-    parameter dtype. Parameters are created empty; ``Model.init`` or
-    ``load_state_dict`` fills them.
+    Matmul weights and the biases added to their products are held in the
+    compute dtype; norms, the router and the rest in the parameter dtype.
+    Parameters are created empty; ``Model.init`` or ``load_state_dict``
+    fills them.
     """
 
-    def __init__(self, cfg: ModelConfig, device="cuda", kind=KIND_ATTN):
+    def __init__(self, cfg: ModelConfig, device="cuda", kind=KIND_ATTN,
+                 cross: bool = False):
         super().__init__()
         d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
         cd, pd = cdtype(cfg), pdtype(cfg)
+        audio = cfg.family == FAMILY_AUDIO
 
         def param(*shape, dtype):
             return _param(*shape, dtype=dtype, device=device)
 
-        self.norm1 = param(d, dtype=pd)
-        self.wq = param(d, qd, dtype=cd)
-        self.wk = param(d, kvd, dtype=cd)
-        self.wv = param(d, kvd, dtype=cd)
-        self.wo = param(qd, d, dtype=cd)
-        if cfg.qkv_bias:
-            self.bq = param(qd, dtype=cd)
-            self.bk = param(kvd, dtype=cd)
-            self.bv = param(kvd, dtype=cd)
-        self.norm2 = param(d, dtype=pd)
-        self.w_gate = param(d, ff, dtype=cd)
-        self.w_up = param(d, ff, dtype=cd)
-        self.w_down = param(ff, d, dtype=cd)
+        def norm(name):
+            setattr(self, name, param(d, dtype=pd))
+            if audio:
+                setattr(self, name + "_bias", param(d, dtype=pd))
+
+        def projections(prefix):
+            for name, shape in (("wq", (d, qd)), ("wk", (d, kvd)),
+                                ("wv", (d, kvd)), ("wo", (qd, d))):
+                setattr(self, prefix + name, param(*shape, dtype=cd))
+            if cfg.qkv_bias:
+                for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd)):
+                    setattr(self, prefix + name, param(n, dtype=cd))
+
+        norm("norm1")
+        projections("")
+        norm("norm2")
+        if kind == KIND_MOE:
+            E = cfg.num_experts
+            self.moe_router = param(d, E, dtype=pd)
+            self.moe_w_gate = param(E, d, ff, dtype=cd)
+            self.moe_w_up = param(E, d, ff, dtype=cd)
+            self.moe_w_down = param(E, ff, d, dtype=cd)
+        if audio:
+            self.w_up = param(d, ff, dtype=cd)
+            self.b_up = param(ff, dtype=cd)
+            self.w_down = param(ff, d, dtype=cd)
+            self.b_down = param(d, dtype=cd)
+        elif kind != KIND_MOE or cfg.moe_dense_residual:
+            self.w_gate = param(d, ff, dtype=cd)
+            self.w_up = param(d, ff, dtype=cd)
+            self.w_down = param(ff, d, dtype=cd)
         if kind == KIND_HYBRID:
             _add_ssm_params(self, cfg, device)
+        if cross:
+            projections("cross_")
+            norm("norm_cross")
 
 
-def make_block(cfg: ModelConfig, kind: str, device="cuda") -> nn.Module:
-    """The empty block of a layer kind."""
+def make_block(cfg: ModelConfig, kind: str, device="cuda",
+               cross: bool = False) -> nn.Module:
+    """The empty block of a layer kind (``cross``: with cross-attention)."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     if kind == KIND_SSM:
         return SSMBlock(cfg, device)
-    return Block(cfg, device, kind=kind)
+    return Block(cfg, device, kind=kind, cross=cross)
 
 
-def block_train(cfg: ModelConfig, kind: str, p, h):
-    """Training-path block (no cache): causal self-attention over the whole
+def norm(cfg: ModelConfig, p, name: str, x):
+    """Apply the norm ``name`` of ``p`` (with its ``<name>_bias`` under the
+    audio family's LayerNorm)."""
+    bias = getattr(p, name + "_bias") if cfg.family == FAMILY_AUDIO else None
+    return apply_norm(cfg, getattr(p, name), x, bias)
+
+
+def mlp(cfg: ModelConfig, p, x):
+    """The dense MLP of ``p``: biased GELU for the audio family, gated
+    SiLU otherwise."""
+    if cfg.family == FAMILY_AUDIO:
+        return gelu_mlp(x, p.w_up, p.b_up, p.w_down, p.b_down)
+    return gated_mlp(x, p.w_gate, p.w_up, p.w_down)
+
+
+def cross_weights(p):
+    """Block ``p``'s cross-attention projections under their plain names
+    (``wq`` ... ``bv``), as ``attention.cross_kv``/``cross_attention``
+    take them."""
+    return types.SimpleNamespace(**{
+        name: getattr(p, "cross_" + name) for name in CROSS_NAMES
+        if hasattr(p, "cross_" + name)})
+
+
+def _mlp_part(cfg: ModelConfig, kind: str, p, h):
+    """Post-attention feed-forward: the dense MLP, or the MoE (plus the
+    dense MLP on the same normed input under ``moe_dense_residual``).
+    Returns (delta, router aux loss; the number 0 without MoE, so that
+    the cached path, which drops it, launches nothing for it)."""
+    hn = norm(cfg, p, "norm2", h)
+    if kind == KIND_MOE:
+        y, aux = moe_mod.moe_mlp(cfg, p, hn)
+        if cfg.moe_dense_residual:
+            y = y + mlp(cfg, p, hn)
+        return y, aux
+    return mlp(cfg, p, hn), 0.0
+
+
+def block_train(cfg: ModelConfig, kind: str, p, h, enc_out=None,
+                causal: bool = True):
+    """Training-path block (no cache): self-attention over the whole
     sequence (and, in a hybrid block, the SSM mixer on the same normed
-    input, averaged with it), then the gated MLP; an SSM block is the
-    mixer alone. h: (B,S,d) -> (B,S,d). ``p`` is a block or any object
-    holding its weights as attributes."""
+    input, averaged with it), cross-attention over ``enc_out`` when it is
+    given and the block has it, then the MLP or MoE; an SSM block is the
+    mixer alone. h: (B,S,d) -> (h, router aux loss). ``causal`` is off in
+    the whisper encoder's blocks. ``p`` is a block or any object holding
+    its weights as attributes."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    hn = apply_norm(cfg, p.norm1, h)
+    hn = norm(cfg, p, "norm1", h)
     if kind == KIND_SSM:
-        return h + ssm_mod.ssm_forward(cfg, p, hn)[0]
-    a = attn.self_attention_full(cfg, p, hn, window=_kind_window(cfg, kind))
+        return h + ssm_mod.ssm_forward(cfg, p, hn)[0], 0.0
+    a = attn.self_attention_full(cfg, p, hn, window=_kind_window(cfg, kind),
+                                 causal=causal)
     if kind == KIND_HYBRID:
         a = 0.5 * (a + ssm_mod.ssm_forward(cfg, p, hn)[0])
     h = h + a
-    return h + gated_mlp(apply_norm(cfg, p.norm2, h), p.w_gate, p.w_up,
-                         p.w_down)
+    if enc_out is not None and hasattr(p, "cross_wq"):
+        cw = cross_weights(p)
+        ck, cv = attn.cross_kv(cfg, cw, enc_out)
+        h = h + attn.cross_attention(cfg, cw, norm(cfg, p, "norm_cross", h),
+                                     ck, cv)
+    y, aux = _mlp_part(cfg, kind, p, h)
+    return h + y, aux
 
 
 def _ssm_cached(cfg: ModelConfig, p, hn, cache_l, q_pos, decode: bool):
@@ -214,12 +299,14 @@ def block_cached(cfg: ModelConfig, kind: str, p, h, cache_l, q_pos,
     cache_l holds this layer's state, updated in place: a paged K/V leaf
     set (``pk``/``pv``/``pkpos``, read through ``block_table``) or a slot
     cache (``k``/``v``/``kpos``, a ring for windowed layers), and for SSM
-    and hybrid layers ``ssm_state``/``conv_buf``. ``decode`` (S=1) takes
-    the SSM's recurrent step instead of the chunked scan.
+    and hybrid layers ``ssm_state``/``conv_buf``, and for cross-attention
+    layers the encoder's ``ck``/``cv`` (read only). ``decode`` (S=1) takes
+    the SSM's recurrent step instead of the chunked scan. The MoE's router
+    aux loss is dropped, as the reference's cached path drops it.
     """
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    hn = apply_norm(cfg, p.norm1, h)
+    hn = norm(cfg, p, "norm1", h)
     if kind == KIND_SSM:
         return h + _ssm_cached(cfg, p, hn, cache_l, q_pos, decode), cache_l
     if "pk" in cache_l:
@@ -231,16 +318,22 @@ def block_cached(cfg: ModelConfig, kind: str, p, h, cache_l, q_pos,
     if kind == KIND_HYBRID:
         a = 0.5 * (a + _ssm_cached(cfg, p, hn, cache_l, q_pos, decode))
     h = h + a
-    return h + gated_mlp(apply_norm(cfg, p.norm2, h), p.w_gate, p.w_up,
-                         p.w_down), cache_l
+    if "ck" in cache_l and hasattr(p, "cross_wq"):
+        h = h + attn.cross_attention(cfg, cross_weights(p),
+                                     norm(cfg, p, "norm_cross", h),
+                                     cache_l["ck"], cache_l["cv"])
+    return h + _mlp_part(cfg, kind, p, h)[0], cache_l
 
 
 def init_run_cache(cfg: ModelConfig, kind: str, n_layers: int, batch: int,
-                   max_len: int, kv_layout: str = "contig",
+                   max_len: int, enc_seq: int = 0, kv_layout: str = "contig",
                    num_pages: int = 0, page_size: int = 0,
                    device="cuda") -> dict:
     """Allocate the cache of one homogeneous layer run: K/V for attention
-    layers, SSM state and conv buffer for SSM layers, both for hybrid ones.
+    layers, SSM state and conv buffer for SSM layers, both for hybrid ones,
+    and with cross-attention the encoder's K/V (``ck``/``cv``, (n_layers,
+    batch, enc_seq, KH, hd), zeros until ``Model.build_cross_cache`` fills
+    them).
 
     Windowed runs keep their ring slots even under ``kv_layout="paged"``:
     they are already bounded at the window, so paging buys nothing.
@@ -259,4 +352,9 @@ def init_run_cache(cfg: ModelConfig, kind: str, n_layers: int, batch: int,
     if kind in (KIND_SSM, KIND_HYBRID):
         cache.update(ssm_mod.init_ssm_state(cfg, batch, n_layers,
                                             device=device))
+    if cfg.cross_attention and enc_seq:
+        cache["ck"] = torch.zeros((n_layers, batch, enc_seq, cfg.num_kv_heads,
+                                   cfg.head_dim), dtype=cdtype(cfg),
+                                  device=device)
+        cache["cv"] = torch.zeros_like(cache["ck"])
     return cache

@@ -24,7 +24,7 @@ from repro_torch.core import predictor as probe_mod
 from repro_torch.core.bins import bin_index, bin_means
 from repro_torch.training import optimizer as opt_mod
 
-_BATCH_KEYS = ("tokens", "labels")
+_BATCH_KEYS = ("tokens", "labels", "enc_embeds")
 
 
 def make_loss_fn(model):
@@ -50,7 +50,7 @@ def make_train_step(model, ocfg: opt_mod.AdamWConfig):
                                     allow_unused=True)
         params, opt_state, om = opt_mod.update(
             ocfg, dict(zip(live, grads)), opt_state, params)
-        metrics = {"loss": loss.detach(), "aux_loss": aux["aux_loss"],
+        metrics = {"loss": loss.detach(), "aux_loss": aux["aux_loss"].detach(),
                    "n_tok": aux["n_tok"].detach(), **om}
         return params, opt_state, metrics
 
@@ -72,7 +72,7 @@ def train_lm(model, params: dict, data_iter, ocfg: opt_mod.AdamWConfig,
         if step >= n_steps:
             break
         tb = {k: torch.from_numpy(np.asarray(batch[k])).to(model.device)
-              for k in _BATCH_KEYS}
+              for k in _BATCH_KEYS if k in batch}
         params, opt_state, m = step_fn(params, opt_state, tb)
         if step % log_every == 0 or step == n_steps - 1:
             rec = {k: float(v) for k, v in m.items()}

@@ -270,7 +270,7 @@ def test_paged_pool_export_import_and_cow_in_place():
 def test_real_mode_needs_the_paged_layout_and_the_model_device():
     """Real mode now runs on either layout (the contiguous one is the
     default); the model must live on the engine's device, and a model of
-    an unported layer kind cannot be built."""
+    an unported feature (paligemma's vision prefix) cannot be built."""
     _, _, _, pcfg, tm = models()
     eng = port_engine.Engine(pcfg, port_engine.EngineConfig(mode="real"),
                              model=tm, device="cpu")
@@ -280,7 +280,7 @@ def test_real_mode_needs_the_paged_layout_and_the_model_device():
         port_engine.Engine(pcfg, port_engine.EngineConfig(
             mode="real", kv_layout="paged"), model=tm, device="cuda")
     with pytest.raises(NotImplementedError):
-        Model(port_smoke_config("olmoe-1b-7b"), device="cpu")
+        Model(port_smoke_config("paligemma-3b"), device="cpu")
 
 
 @pytest.mark.parametrize("kv_layout", ["contig", "paged"])

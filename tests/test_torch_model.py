@@ -263,19 +263,21 @@ def test_init_is_seeded_with_the_reference_distributions():
 
 @pytest.mark.parametrize("arch", ARCH_IDS + ("trail-llama",))
 def test_only_attention_stacks_are_ported(arch):
-    """Global and sliding-window attention, Mamba-2 and hybrid stacks
-    construct (the gemma, mamba2 and hymba configs among them, learned
-    positions too); every other layer kind and feature raises."""
+    """Global and sliding-window attention, MoE, Mamba-2 and hybrid
+    stacks and the encoder-decoder construct (the gemma, olmoe, arctic,
+    mamba2, hymba and whisper configs among them, learned positions too);
+    every other feature (prefix embeds, ``kv_quant``) raises."""
     cfg = port_smoke_config(arch)
-    supported = (set(cfg.layer_kinds) <= {"attn", "local", "ssm", "hybrid"}
-                 and not cfg.kv_quant and not cfg.cross_attention
-                 and not cfg.num_prefix_tokens and cfg.family != "audio")
+    supported = (set(cfg.layer_kinds) <= {"attn", "local", "ssm", "hybrid",
+                                          "moe"}
+                 and not cfg.kv_quant and not cfg.num_prefix_tokens)
     if supported:
         Model(cfg, device="cpu")
     else:
         with pytest.raises(NotImplementedError):
             Model(cfg, device="cpu")
-    assert supported or not arch.startswith(("gemma", "mamba2", "hymba"))
+    assert supported or not arch.startswith(("gemma", "mamba2", "hymba",
+                                             "olmoe", "arctic", "whisper"))
 
 
 def test_init_cache_defaults_to_the_contiguous_layout():
