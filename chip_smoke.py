@@ -25,19 +25,28 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
 3. hold each kernel against its plain PyTorch version on the card, float32
    and bfloat16, with inactive (q_pos = -1) rows and a logit softcap:
    the paged kernels at the shapes of ``granite-3-8b``, ``trail-llama``
-   and ``gemma2-9b`` (head_dim 256) and ``olmoe-1b-7b`` (16/16 heads of
-   128) with scrambled block tables and null pages;
+   and ``gemma2-9b`` (head_dim 256), ``olmoe-1b-7b`` (16/16 heads of
+   128) and ``paligemma-3b`` (8 query heads over one KV head of 256;
+   the multi-query kernel also at T = 512, a 256-row prefix before a
+   256-token chunk) with scrambled block tables and null pages;
    ``decode_attention`` at the shapes of ``gemma2-9b`` (a 4608-slot
    cache, and a wrapped 4096-slot ring with window 4096), ``gemma3-1b``
    (one KV head, window 512), ``granite-3-8b`` and ``hymba-1.5b`` (25/5
    heads of 64, a 1025-slot ring with window 1024), ``whisper-tiny`` (6/6
    heads of 64) and ``olmoe-1b-7b`` (16/16 heads of 128), both 449
-   slots; both single-query
+   slots, and ``paligemma-3b`` (8/1 heads of 256, 577 slots); over int8
+   caches (K/V quantised by the model's ``_quantize``, with their
+   scales), with float32 and bf16 queries, at the shapes of
+   ``qwen1.5-32b`` (40/40 heads of 128, 449 slots), ``granite-3-8b``,
+   a wrapped ``gemma2-9b`` ring (window 4096, softcap 50), ``gemma3-1b``,
+   ``whisper-tiny`` and head_dim 32, each logging its split; both
+   single-query
    kernels also at the edges of their split over a thread-block cluster
    (B=1, where the split is largest; rows of 1 and ps - 1 tokens, one
    scan tile and one round of tiles over the split; every valid key in
    one CTA; 256-page tables; a window edge inside a tile; inactive rows),
-   each case logging the split its launch used; the multi-query kernel
+   each case logging the split its launch used (``decode_attention`` also
+   over int8 caches); the multi-query kernel
    also with pages of 8 and in a prefill batch whose every row tile is
    inactive but two sequences'; ``probe_update`` at ``gemma2-9b`` width
    (1, 16, 17 and 64 rows, bfloat16 and float32 taps), at the d of
@@ -81,8 +90,12 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    serves' shapes a call takes less device time than its wrapper takes
    on the host), also at the shapes the serves launch most: the gemma2-9b
    and hymba-1.5b local rings holding 300 positions, granite's and
-   olmoe's 28-page tables holding about 300 tokens and whisper's and
-   olmoe's 449-slot rows holding 300; ``ssd_scan`` at a prefill
+   olmoe's 28-page tables holding about 300 tokens, whisper's and
+   olmoe's 449-slot rows holding 300, and qwen1.5-32b's int8 449-slot
+   rows holding 300 (its library yardstick is SDPA over a bf16 copy of
+   the same cache, twice the bytes); the multi-query kernel and
+   ``flash_attention`` also at paligemma-3b's prefix shape (G = 8, hd
+   256, 512 rows); ``ssd_scan`` at a prefill
    chunk's shape of mamba2-370m and hymba-1.5b and at the tap harvest's
    (mamba2-370m, 8 x 512 from a zero state);
 5. hold the model on the card against the same weights on the CPU in
@@ -186,13 +199,15 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     12 of 12 finished each, the host wall of each run printed;
 19. ``phase_serve_whisper``: ``whisper-tiny`` at full width and depth (4
     encoder and 4 decoder layers, 1500 frames): in float32 on the card
-    against the CPU, ``prefill_chunk(enc_embeds=...)`` over 16 x 1500
+    against the CPU, under the contiguous and the paged layout,
+    ``prefill_chunk(enc_embeds=...)`` over 16 x 1500
     frames (the encoder's non-causal ``flash_attention``, the cross
     caches; ``encode`` and ``build_cross_cache`` alone give the same
     caches bit for bit) and 8 decode steps, tokens equal and logits
-    within 1e-4; the 12 requests of phase 6 served contiguous with bf16
-    weights (``decode_attention``; the decoder reads zeroed cross caches,
-    as the reference engine's does); one ``forward_train`` and backward
+    within 1e-4; the 12 requests of phase 6 served contiguous and paged
+    with bf16 weights (``decode_attention``, then the paged kernels; the
+    decoder reads zeroed cross caches, as the reference engine's does);
+    one ``forward_train`` and backward
     with frame embeddings at 8 x 448 (4 non-causal launches in the
     encoder, 8 causal in the decoder with its remat recompute);
 20. ``phase_serve_moe``: ``olmoe-1b-7b`` at full width and depth (16
@@ -203,7 +218,24 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     megastep and a prefill chunk profiled with their device time split
     into the attention kernels and the MoE's router, dispatch, expert
     products and combine, and ``olmoe-smoke`` in float32 against the CPU
-    (phase 5's check, contiguous and paged).
+    (phase 5's check, contiguous and paged);
+21. ``phase_prefix``: ``paligemma-3b`` at full width and depth (18
+    layers, 8/1 heads of 256, 256 prefix positions): the 12 requests
+    served paged and contiguous (text only, as the reference engine
+    serves it); ``prefill_chunk`` with a seeded 4 x 256 bf16 prefix before
+    a 256-token chunk, then 4 decode steps, under both layouts (the
+    multi-query kernel at T = 512, G = 8); one ``forward_train`` with
+    ``prefix_embeds`` at 4 x (256 + 256) through ``flash_attention``;
+    ``paligemma-smoke`` in float32 with a prefix, card against CPU,
+    under both layouts;
+22. ``phase_serve_qwen_int8``: ``qwen-smoke`` in float32 with
+    ``kv_quant`` on the card against the CPU (phase 5's check; the int8
+    payloads compared too), then ``qwen1.5-32b`` with ``kv_quant=True``
+    at full width and depth (64 layers, d_model 5120, 40/40 heads of
+    128; 68.5 GiB of weights): the 12 requests served contiguous with 16
+    rows, every decode step through the int8 ``decode_attention``, peak
+    memory and the cache's int8 and bf16 bytes logged, one decode
+    megastep and one prefill chunk profiled.
 
 Every kernel launch count is set to 0 just before a path is driven and
 read just after it; launches made to compare a kernel with its plain
@@ -307,13 +339,16 @@ def paged_case(torch, *, B, T, H, KH, hd, ps, pmax, dtype, seed,
 
 
 def slot_case(torch, *, B, H, KH, hd, M, window, dtype, seed, inactive=(),
-              lengths=None):
+              lengths=None, int8=False):
     """Random slot cache laid out as ``cache_write`` lays it out (on the
     card). Without a window, position p sits in slot p; with one the M
     slots are a ring holding each row's last M positions at slot p % M,
     so a row longer than M has wrapped and its positions are out of slot
     order. Row lengths are random (up to 3M for a ring) unless given;
-    q_pos is each row's last position, -1 for rows in ``inactive``."""
+    q_pos is each row's last position, -1 for rows in ``inactive``.
+    ``int8``: K/V quantised by the model's ``_quantize`` (int8 values and
+    their float32 scales ``k_scale``/``v_scale``, as a ``kv_quant`` cache
+    holds them); q stays in ``dtype``."""
     import numpy as np
     rng = np.random.default_rng(seed)
     dev = "cuda"
@@ -330,8 +365,13 @@ def slot_case(torch, *, B, H, KH, hd, M, window, dtype, seed, inactive=(),
         kpos[b, pos % M if window else pos] = pos
     q_pos = (np.asarray(lengths) - 1).astype(np.int32)
     q_pos[list(inactive)] = -1
-    return dict(q=q, k=k, v=v, kpos=torch.from_numpy(kpos).to(dev),
+    case = dict(q=q, k=k, v=v, kpos=torch.from_numpy(kpos).to(dev),
                 q_pos=torch.from_numpy(q_pos).to(dev))
+    if int8:
+        from repro_torch.models.attention import _quantize
+        case["k"], case["k_scale"] = _quantize(k)
+        case["v"], case["v_scale"] = _quantize(v)
+    return case
 
 
 def probe_case(torch, *, B, d, hid, k, tap_dtype, seed, fallback=False):
@@ -402,18 +442,20 @@ def slot_bound(case, window, dtype):
     """Bytes: q and q_pos, the kpos of the slots the function must look at
     (a ring: all M; without a window: slots 0..q_pos, where cache_write
     puts every position a query can see), the K and V rows the mask lets
-    through, read once each, and the output written once. Operations:
-    4*hd per (query head, valid key) pair."""
+    through, read once each (an int8 row with its two float32 scales),
+    and the output written once. Operations: 4*hd per (query head, valid
+    key) pair."""
     q, k, kpos, qp = case["q"], case["k"], case["kpos"], case["q_pos"]
     B, H, hd = q.shape
     M, KH = k.shape[1], k.shape[2]
     el = q.element_size()
+    row = 2 * KH * (hd * k.element_size() + 4 * ("k_scale" in case))
     valid = (kpos >= 0) & (kpos <= qp[:, None])
     if window:
         valid &= kpos > qp[:, None] - window
     looked = B * M if window else int((qp + 1).clamp(0, M).sum())
     rows = int(valid.sum())
-    nbytes = rows * 2 * KH * hd * el + looked * 4 + 2 * q.numel() * el + B * 4
+    nbytes = rows * row + looked * 4 + 2 * q.numel() * el + B * 4
     return bound_ms(nbytes, 4 * hd * H * rows, dtype)
 
 
@@ -544,9 +586,15 @@ def slot_library_call(case, window):
     """``scaled_dot_product_attention`` over the slot cache with the same
     mask (one query per row, K/V heads repeated for the query groups
     outside the timed call). SDPA has no softcap; it times the same
-    attention without one."""
+    attention without one. It takes no int8: an int8 cache is
+    dequantised into a copy in q's dtype first, outside the timed call,
+    so it reads twice the bytes the kernel does (bf16)."""
     import torch.nn.functional as F
     q, k, v, kpos, qp = (case[n] for n in SLOT_ARGS)
+    if "k_scale" in case:
+        from repro_torch.models.attention import dequantize
+        k = dequantize(k, case["k_scale"]).to(q.dtype)
+        v = dequantize(v, case["v_scale"]).to(q.dtype)
     B, H, hd = q.shape
     KH = k.shape[2]
     kh, vh = (x.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
@@ -754,6 +802,8 @@ def ptxas_usage(report: str):
             base = re.search(r"\d+([a-z_]+_kernel)", mangled)
             args = (["bf16"] if "__nv_bfloat16" in mangled else
                     ["f32"] if re.search(r"_kernelIf", mangled) else [])
+            if re.search(r"_kernelI(f|13__nv_bfloat16)a", mangled):
+                args.append("int8 K/V")
             args += re.findall(r"Li(\d+)E", mangled)
             args += [r for r in ("PagedRows", "SlotRows") if r in mangled]
             kernel = (f"{base.group(1) if base else mangled}"
@@ -770,6 +820,7 @@ PAGED_SHAPES = {  # (H, KH, hd) of the served architectures
     "trail-llama": (12, 4, 64),
     "gemma2-9b": (16, 8, 256),
     "olmoe-1b-7b": (16, 16, 128),
+    "paligemma-3b": (8, 1, 256),        # MQA: 8 query heads over one
 }
 
 SLOT_CASES = [  # arch, H, KH, hd, M, window, softcap
@@ -780,6 +831,16 @@ SLOT_CASES = [  # arch, H, KH, hd, M, window, softcap
     ("hymba-1.5b local", 25, 5, 64, 1025, 1024, 0.0),
     ("whisper-tiny", 6, 6, 64, 449, 0, 0.0),
     ("olmoe-1b-7b", 16, 16, 128, 449, 0, 0.0),
+    ("paligemma-3b", 8, 1, 256, 577, 0, 0.0),
+]
+
+SLOT_INT8_CASES = [  # the int8 cache of kv_quant: arch, H, KH, hd, M, window,
+    ("qwen1.5-32b", 40, 40, 128, 449, 0, 0.0),                 # softcap
+    ("granite-3-8b", 32, 8, 128, 448, 0, 0.0),
+    ("gemma2-9b local", 16, 8, 256, 4096, 4096, 50.0),
+    ("gemma3-1b local", 4, 1, 256, 512, 512, 0.0),
+    ("whisper-tiny", 6, 6, 64, 449, 0, 0.0),
+    ("head_dim 32", 4, 4, 32, 200, 0, 0.0),
 ]
 
 
@@ -797,6 +858,7 @@ FLASH_CASES = [  # label, B, S, H, KH, hd, window, softcap, causal
     ("hymba-1.5b local", 2, 1500, 25, 5, 64, 1024, 0.0, True),
     ("granite ragged S", 2, 777, 32, 8, 128, 0, 0.0, True),
     ("whisper-tiny encoder", 16, 1500, 6, 6, 64, 0, 0.0, False),
+    ("paligemma-3b prefix", 4, 512, 8, 1, 256, 0, 0.0, True),
 ]
 
 SSD_CASES = [  # label, B, L, nh, hp, N, chunk, decay of A
@@ -820,6 +882,7 @@ FLASH_TIMED = {  # arch: B, S, H, KH, hd, window, softcap, causal (bf16)
     "granite-3-8b": (8, 512, 32, 8, 128, 0, 0.0, True),
     "gemma2-9b local": (1, 4608, 16, 8, 256, 4096, 50.0, True),
     "whisper-tiny encoder": (16, 1500, 6, 6, 64, 0, 0.0, False),
+    "paligemma-3b prefix": (4, 512, 8, 1, 256, 0, 0.0, True),
 }
 
 
@@ -943,6 +1006,20 @@ def phase_check_ssd(torch):
     return worst
 
 
+def check_slot(torch, dec, ref, case, window, cap, dtype, label):
+    """``decode_attention`` on a ``slot_case`` (an int8 one with its scales)
+    against its plain version; returns (max error, the kernel's output).
+    An int8 case is named ``decode_attention_int8``."""
+    args = [case[n] for n in SLOT_ARGS]
+    scales = {n: case[n] for n in ("k_scale", "v_scale") if n in case}
+    got = dec.decode_attention(*args, window=window, softcap=cap, **scales)
+    want = ref.decode_attention_ref(*args, window=window, softcap=cap,
+                                    **scales)
+    torch.cuda.synchronize()
+    name = "decode_attention_int8" if scales else "decode_attention"
+    return compare(name, label, got, want, dtype), got
+
+
 def check_multi(paged, ref, args, cap):
     """The multi-query kernel, its plain version, and the plain version on
     |v| in float32 (the magnitude ``tc_attention_bound`` takes)."""
@@ -982,7 +1059,8 @@ def phase_check(torch):
     from repro_torch.kernels import probe, ref
     worst = dict.fromkeys(("paged_decode_attention",
                            "paged_decode_attention_multi",
-                           "decode_attention", "probe_update"), 0.0)
+                           "decode_attention", "decode_attention_int8",
+                           "probe_update"), 0.0)
     seed = 0
     for arch, (H, KH, hd) in PAGED_SHAPES.items():
         for dtype in ("float32", "bfloat16"):
@@ -1018,7 +1096,8 @@ def phase_check(torch):
             ("granite-3-8b", 256, 16, 64,
              tuple(b for b in range(16) if b not in (0, 9))),
             ("trail-llama", 256, 16, 64,
-             tuple(b for b in range(16) if b not in (5, 6)))):
+             tuple(b for b in range(16) if b not in (5, 6))),
+            ("paligemma-3b", 512, 16, 64, (3, 11))):   # prefix + chunk
         H, KH, hd = PAGED_SHAPES[arch]
         for dtype in ("float32", "bfloat16"):
             seed += 1
@@ -1035,28 +1114,31 @@ def phase_check(torch):
             if float(got[list(inactive)].float().abs().max()) != 0.0:
                 fail("paged_decode_attention_multi: inactive rows are not "
                      "zero")
-    for arch, H, KH, hd, M, window, cap in SLOT_CASES:
-        for dtype in ("float32", "bfloat16"):
-            seed += 1
-            case = slot_case(torch, B=16, H=H, KH=KH, hd=hd, M=M,
-                             window=window, dtype=dtype, seed=seed,
-                             inactive=(3, 11))
-            args = [case[n] for n in SLOT_ARGS]
-            got = dec.decode_attention(*args, window=window, softcap=cap)
-            want = ref.decode_attention_ref(*args, window=window,
-                                            softcap=cap)
-            torch.cuda.synchronize()
-            wrapped = int((case["q_pos"] >= M).sum())
-            err = compare("decode_attention",
-                          f"{arch:17s} {dtype:8s} M={M} window={window} "
-                          f"softcap={cap:2.0f} ({wrapped} rows wrapped)",
-                          got, want, dtype)
-            if float(got[[3, 11]].float().abs().max()) != 0.0:
-                fail("decode_attention: inactive rows are not zero")
-            if window and not wrapped:
-                fail("decode_attention: no ring row wrapped")
-            if dtype == "bfloat16" and arch.startswith("gemma2"):
-                worst["decode_attention"] = max(worst["decode_attention"], err)
+    for int8, cases in ((False, SLOT_CASES), (True, SLOT_INT8_CASES)):
+        for arch, H, KH, hd, M, window, cap in cases:
+            for dtype in ("float32", "bfloat16"):
+                seed += 1
+                case = slot_case(torch, B=16, H=H, KH=KH, hd=hd, M=M,
+                                 window=window, dtype=dtype, seed=seed,
+                                 inactive=(3, 11), int8=int8)
+                wrapped = int((case["q_pos"] >= M).sum())
+                label = (f"{arch:17s} {dtype:8s} M={M} window={window} "
+                         f"softcap={cap:2.0f} ({wrapped} rows wrapped)")
+                if int8:
+                    label = f"{label} int8 K/V, split=%d" % decode_split(
+                        "decode_attention", dtype, int8=True, B=16, H=H,
+                        KH=KH, hd=hd, M=M)
+                err, got = check_slot(torch, dec, ref, case, window, cap,
+                                      dtype, label)
+                if float(got[[3, 11]].float().abs().max()) != 0.0:
+                    fail("decode_attention: inactive rows are not zero")
+                if window and not wrapped:
+                    fail("decode_attention: no ring row wrapped")
+                if dtype == "bfloat16" and arch.startswith(
+                        "qwen" if int8 else "gemma2"):
+                    name = "decode_attention_int8" if int8 else \
+                        "decode_attention"
+                    worst[name] = max(worst[name], err)
     for label, B, d, hid, k, tap_dtype, fallback in PROBE_CASES:
         seed += 1
         case = probe_case(torch, B=B, d=d, hid=hid, k=k, tap_dtype=tap_dtype,
@@ -1109,18 +1191,19 @@ def check_probe_repeats(torch, probe):
         fail("probe_update: repeated or concurrent calls disagree")
 
 
-def decode_split(kernel, dtype, **shape):
+def decode_split(kernel, dtype, int8=False, **shape):
     """The CTAs per (KV head, sequence) row that ``kernel``
     (``decode_attention`` or ``paged_decode_attention``) launches for these
     sizes: its C library's ``<kernel>_split`` entry, which sizes the
-    cluster exactly as the launch does. Fails on a CUDA error."""
+    cluster exactly as the launch does (``int8``: over an int8 slot
+    cache). Fails on a CUDA error."""
     import ctypes
     from repro_torch.kernels import build
     names = (("B", "H", "KH", "hd", "M") if kernel == "decode_attention"
              else ("B", "H", "KH", "hd", "ps", "pmax"))
     entry = f"{kernel}_split"
     lib = build.bind(kernel, {entry: [ctypes.c_int] * (1 + len(names))})
-    n = getattr(lib, entry)(1 if dtype == "bfloat16" else 0,
+    n = getattr(lib, entry)((1 if dtype == "bfloat16" else 0) + 2 * int8,
                             *(shape[k] for k in names))
     if n < 1:
         fail(f"{entry}: CUDA error {-n}")
@@ -1174,8 +1257,9 @@ def edge_lengths(nsplit, ps, B, full):
 def phase_check_split(torch):
     """``decode_attention`` and ``paged_decode_attention`` at the edges of
     their split over a thread-block cluster, float32 (1e-5) and bfloat16
-    (one rounding), inactive rows exactly 0. B=1 takes the largest split;
-    each case logs the split its launch used."""
+    (one rounding), ``decode_attention`` also over int8 caches with either
+    query type, inactive rows exactly 0. B=1 takes the largest split; each
+    case logs the split its launch used."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import paged_decode_attention as paged
     from repro_torch.kernels import ref
@@ -1208,24 +1292,21 @@ def phase_check_split(torch):
             if inactive and float(got[list(inactive)].float().abs().max()):
                 fail("paged_decode_attention: inactive rows are not zero")
     for label, H, KH, hd, M, window, cap, B, lengths, inactive in SLOT_EDGES:
-        for dtype in ("float32", "bfloat16"):
+        for dtype, int8 in (("float32", False), ("bfloat16", False),
+                            ("float32", True), ("bfloat16", True)):
             seed += 1
-            ns = decode_split("decode_attention", dtype, B=B, H=H, KH=KH,
-                              hd=hd, M=M)
+            ns = decode_split("decode_attention", dtype, int8=int8, B=B, H=H,
+                              KH=KH, hd=hd, M=M)
             largest = max(largest, ns)
             lens = (edge_lengths(ns, 16, B, M) if lengths == "edges"
                     else lengths)
             case = slot_case(torch, B=B, H=H, KH=KH, hd=hd, M=M,
                              window=window, dtype=dtype, seed=seed,
-                             inactive=inactive, lengths=lens)
-            args = [case[n] for n in SLOT_ARGS]
-            got = dec.decode_attention(*args, window=window, softcap=cap)
-            want = ref.decode_attention_ref(*args, window=window,
-                                            softcap=cap)
-            torch.cuda.synchronize()
-            compare("decode_attention",
-                    f"{label:30s} {dtype:8s} B={B} split={ns} "
-                    f"lengths={list(lens)[:8]}", got, want, dtype)
+                             inactive=inactive, lengths=lens, int8=int8)
+            _, got = check_slot(
+                torch, dec, ref, case, window, cap, dtype,
+                f"{label:30s} {dtype:8s}{' int8 K/V' * int8} B={B} "
+                f"split={ns} lengths={list(lens)[:8]}")
             if inactive and float(got[list(inactive)].float().abs().max()):
                 fail("decode_attention: inactive rows are not zero")
     log(f"[check] the largest split launched: {largest} CTAs per cluster")
@@ -1261,6 +1342,8 @@ DECODE_TIMED = [
      (16, 16, 128, 449, 0, 0.0, 300)),
     ("decode_attention[whisper-tiny,serve]", "slot",
      (6, 6, 64, 449, 0, 0.0, 300)),
+    ("decode_attention_int8[qwen1.5-32b,serve]", "slot_int8",
+     (40, 40, 128, 449, 0, 0.0, 300)),
 ]
 
 
@@ -1290,15 +1373,21 @@ def decode_timed_case(torch, kind, spec, with_split=True):
         return (args, 0, 0.0, shape, paged_library_call(torch, case),
                 paged_bound(case, "bfloat16"))
     H, KH, hd, M, window, cap, length = spec
+    int8 = kind == "slot_int8"
     case = slot_case(torch, B=16, H=H, KH=KH, hd=hd, M=M, window=window,
-                     dtype="bfloat16", seed=7, lengths=[length] * 16)
+                     dtype="bfloat16", seed=7, lengths=[length] * 16,
+                     int8=int8)
     shape = (f"B=16 H={H} KH={KH} hd={hd} M={M} window={window} "
-             f"softcap={cap:2.0f} bf16, {length} positions a row")
+             f"softcap={cap:2.0f} bf16{' q, int8 K/V' * int8}, {length} "
+             f"positions a row")
     if with_split:
         shape += " split=%d" % decode_split(
-            "decode_attention", "bfloat16", B=16, H=H, KH=KH, hd=hd, M=M)
-    return ([case[n] for n in SLOT_ARGS], window, cap, shape,
-            slot_library_call(case, window),
+            "decode_attention", "bfloat16", int8=int8, B=16, H=H, KH=KH,
+            hd=hd, M=M)
+    args = [case[n] for n in SLOT_ARGS]
+    if int8:
+        args += [case["k_scale"], case["v_scale"]]
+    return (args, window, cap, shape, slot_library_call(case, window),
             slot_bound(case, window, "bfloat16"))
 
 
@@ -1366,6 +1455,8 @@ def compare_decode(torch, dirs):
         "paged_decode_attention":
             [ptr] * 7 + [i32] * 7 + [f32, i32, f32, ptr]})
     for label, kind, spec in DECODE_TIMED:
+        if kind == "slot_int8":     # an entry of its own, not in older builds
+            continue
         args, window, cap, shape, lib, (b_ms, by) = decode_timed_case(
             torch, kind, spec, with_split=False)
         q = args[0]
@@ -1660,15 +1751,17 @@ def phase_time(torch):
             kfn = lambda: paged.paged_decode_attention(*args)  # noqa: E731
             pfn = lambda: ref.paged_decode_attention_ref(*args)  # noqa: E731
         else:
+            scales = dict(zip(("k_scale", "v_scale"), args[5:]))
             kfn = lambda: dec.decode_attention(  # noqa: E731
-                *args, window=window, softcap=cap)
+                *args[:5], window=window, softcap=cap, **scales)
             pfn = lambda: ref.decode_attention_ref(  # noqa: E731
-                *args, window=window, softcap=cap)
+                *args[:5], window=window, softcap=cap, **scales)
         row(label, shape, kfn, pfn, lib, bound, timer=time_graph_ms,
             plain_timer=time_ms)
 
     for arch, T in (("granite-3-8b", 8), ("granite-3-8b", 256),
-                    ("gemma2-9b", 8), ("olmoe-1b-7b", 256)):
+                    ("gemma2-9b", 8), ("olmoe-1b-7b", 256),
+                    ("paligemma-3b", 512)):
         H, KH, hd = PAGED_SHAPES[arch]
         case = paged_case(torch, B=16, T=T, H=H, KH=KH, hd=hd, ps=16,
                           pmax=64, dtype="bfloat16", seed=100 + T,
@@ -1679,7 +1772,7 @@ def phase_time(torch):
             lambda: paged.paged_decode_attention_multi(*args),
             lambda: ref.paged_decode_attention_multi_ref(*args),
             paged_library_call(torch, case), paged_bound(case, "bfloat16"),
-            plain_iters=5 if T == 256 else 20)
+            plain_iters=5 if T >= 256 else 20)
 
     from repro_torch.kernels import flash_attention as fa
     for arch, (B, S, H, KH, hd, window, cap, causal) in FLASH_TIMED.items():
@@ -1719,11 +1812,13 @@ def phase_time(torch):
     return rows
 
 
-def _model_pair(arch, seed):
-    """The float32 smoke model on the card and the same weights on the CPU."""
+def _model_pair(arch, seed, kv_quant=False):
+    """The float32 smoke model on the card and the same weights on the CPU
+    (``kv_quant``: with int8 slot caches)."""
     from repro_torch.config import get_smoke_config
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              kv_quant=kv_quant)
     gpu = Model(cfg, device="cuda").init(seed=seed)
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -1736,7 +1831,14 @@ REFERENCE_CASES = (("granite-3-8b", "paged"), ("gemma2-9b", "contig"),
                    ("hymba-1.5b", "paged"))
 
 
-def phase_reference(torch, cases=REFERENCE_CASES):
+def _int8_payloads(torch, cache):
+    """The int8 K/V leaves of a ``kv_quant`` cache, on the CPU."""
+    return [sub[leaf].cpu() for key, run in cache.items()
+            if key.startswith("run_") for sub in run if "k_scale" in sub
+            for leaf in ("k", "v")]
+
+
+def phase_reference(torch, cases=REFERENCE_CASES, kv_quant=False):
     """Smoke configs in float32: the model on the card (kernels) against
     the same weights on the CPU (plain versions). gemma2-smoke's and
     hymba-smoke's window is 16: the prompts (24 tokens, then 20 more) wrap
@@ -1744,9 +1846,16 @@ def phase_reference(torch, cases=REFERENCE_CASES):
     sits out the megastep, so the SSM configs also check that padding and
     inactive rows leave the recurrent state alone on both devices, and
     olmoe-smoke (``phase_serve_moe``) that its padded and idle rows take
-    expert capacity alike on both."""
+    expert capacity alike on both.
+
+    ``kv_quant``: int8 slot caches. The card's float32 K/V differ from
+    the CPU's in their last bits, so a value on a rounding tie may be
+    stored one int8 step apart; the int8 payloads are compared, and where
+    any element differs the logits and probe outputs are held to 1e-3
+    (one step moves them by up to ~6e-4 at smoke size) in place of 1e-4.
+    Greedy tokens stay exactly equal."""
     for arch, layout in cases:
-        cfg, gpu, cpu = _model_pair(arch, seed=7)
+        cfg, gpu, cpu = _model_pair(arch, seed=7, kv_quant=kv_quant)
         g = torch.Generator().manual_seed(7)
         chunks = [torch.randint(1, cfg.vocab_size, (4, w), generator=g,
                                 dtype=torch.int32) for w in (24, 20)]
@@ -1754,7 +1863,7 @@ def phase_reference(torch, cases=REFERENCE_CASES):
         valid = torch.ones((4, 24), dtype=torch.bool)
         valid[1, 20:] = False
         budget = torch.tensor([6, 3, 6, 0], dtype=torch.int32)
-        out = {}
+        out, payloads = {}, {}
         for dev, m in (("cuda", gpu), ("cpu", cpu)):
             cache = m.init_cache(4, 64, kv_layout=layout, page_size=16)
             if layout == "paged":       # scrambled pages, 4 per row
@@ -1766,15 +1875,27 @@ def phase_reference(torch, cases=REFERENCE_CASES):
             toks, cache, probs, n = m.decode_multi(
                 cache, tok, budget=budget.to(dev), k=6)
             out[dev] = [x.cpu() for x in (logits, tap_sum, toks, probs, n)]
+            payloads[dev] = _int8_payloads(torch, cache)
         torch.cuda.synchronize()
         errs = [float((a.float() - b.float()).abs().max())
                 for a, b in zip(out["cuda"], out["cpu"])]
+        apart = sum(int((a != b).sum())
+                    for a, b in zip(payloads["cuda"], payloads["cpu"]))
+        tol = 1e-4 if apart == 0 else 1e-3
+        quant = (f", int8 payloads: {apart} of "
+                 f"{sum(a.numel() for a in payloads['cpu'])} element(s) "
+                 f"one step apart (tol {tol:.0e})" if kv_quant else "")
         log(f"[reference] {cfg.name} f32 {layout}, card vs CPU: logits "
             f"{errs[0]:.2e}, tap_sum {errs[1]:.2e}, probe probs "
             f"{errs[3]:.2e}, tokens equal "
             f"{bool(torch.equal(out['cuda'][2], out['cpu'][2]))}, n_emitted "
-            f"{out['cuda'][4].tolist()}")
-        if not (errs[0] <= 1e-4 and errs[1] <= 1e-3 and errs[3] <= 1e-4):
+            f"{out['cuda'][4].tolist()}{quant}")
+        if kv_quant and not payloads["cpu"]:
+            fail(f"{cfg.name}: kv_quant left no int8 cache")
+        if any(int((a.int() - b.int()).abs().max()) > 1
+               for a, b in zip(payloads["cuda"], payloads["cpu"])):
+            fail(f"{cfg.name}: int8 payloads more than one step apart")
+        if not (errs[0] <= tol and errs[1] <= 1e-3 and errs[3] <= tol):
             fail(f"{cfg.name} on the card disagrees with the CPU: {errs}")
         if errs[2] != 0 or errs[4] != 0:
             fail(f"{cfg.name}: greedy tokens on the card differ from the CPU")
@@ -1996,10 +2117,12 @@ def _serve(torch, cfg, model, reqs, knobs, pred):
     return launches, steps[0], steps[1]
 
 
-def _load(torch, arch):
+def _load(torch, arch, kv_quant=False):
+    """The full-size ``arch`` on the card, random weights from seed 0
+    (``kv_quant``: int8 slot caches), and its probe predictor."""
     from repro_torch.config import get_config
     from repro_torch.models.model import Model
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), kv_quant=kv_quant)
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(seed=0)
     torch.cuda.synchronize()
@@ -2013,6 +2136,10 @@ def _load(torch, arch):
     if cfg.num_encoder_layers:
         ssm += (f", encoder {cfg.num_encoder_layers} layers over "
                 f"{cfg.encoder_seq} frames")
+    if cfg.num_prefix_tokens:
+        ssm += f", {cfg.num_prefix_tokens} prefix positions"
+    if cfg.kv_quant:
+        ssm += ", int8 KV cache (kv_quant)"
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}"
@@ -2787,7 +2914,9 @@ def phase_serve_whisper(torch):
     """whisper-tiny at full width and depth (4 encoder and 4 decoder
     layers, d_model 384, 6/6 heads of 64, 1500 frames, vocab 51865).
 
-    (a) float32 on the card against the same weights on the CPU:
+    (a) float32 on the card against the same weights on the CPU, under
+    the contiguous and then the paged layout (self-attention K/V in pages,
+    the cross caches per slot beside them):
     ``prefill_chunk(enc_embeds=...)`` over 16 x 1500 frames made with numpy
     (seed 0), which encodes them (``flash_attention`` non-causal on the
     card) and fills the cross caches, one row padded; then a megastep of
@@ -2796,10 +2925,12 @@ def phase_serve_whisper(torch):
     ``build_cross_cache`` called alone on the card give the prefill's
     cross caches bit for bit.
     (b) serve granite's 12 requests through ``run_policy(mode="real",
-    kv_layout="contig", policy="trail", probe_interval=4, max_batch=16)``
-    with bf16 matmul weights; the engine passes no frame embeddings (as
-    the reference's), so the decoder reads the zeroed cross caches of
-    ``init_cache``: 12 of 12 finished, ``decode_attention`` launched.
+    policy="trail", probe_interval=4, max_batch=16)`` with bf16 matmul
+    weights, contiguous and then paged (no page retention, as in the
+    reference); the engine passes no frame embeddings (as the
+    reference's), so the decoder reads the zeroed cross caches of
+    ``init_cache``: 12 of 12 finished each, ``decode_attention`` and then
+    both paged kernels launched.
     (c) one ``forward_train`` and backward with frame embeddings at 8 x
     448 tokens on float32 masters: ``flash_attention`` non-causal once
     per encoder layer, causal twice per decoder layer (the remat
@@ -2824,51 +2955,65 @@ def phase_serve_whisper(torch):
     valid[1, 20:] = False
     active = torch.ones(B, dtype=torch.bool)
     active[3] = False
-    out, walls = {}, {}
-    for where, m in (("card", gpu), ("CPU", cpu)):
-        dev = m.device
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        logits, cache, _, _ = m.prefill_chunk(
-            m.init_cache(B, 64), tokens.to(dev), valid.to(dev),
-            enc_embeds=enc.to(dev))
-        tok = logits.argmax(-1).to(torch.int32)[:, None]
-        toks, cache, probs, _ = m.decode_multi(cache, tok, active.to(dev),
-                                               k=8)
-        torch.cuda.synchronize()
-        walls[where] = time.perf_counter() - t0
-        sub = cache["run_0"][0]
-        out[where] = [x.cpu() for x in (logits, probs, sub["ck"], sub["cv"],
-                                        toks)]
-        if where == "card":
-            launches = dict(ops.launches)
-            with torch.no_grad():
-                alone = gpu.build_cross_cache(gpu.init_cache(B, 64),
-                                              gpu.encode(enc.to(dev)))
-            if not (torch.equal(alone["run_0"][0]["ck"], sub["ck"])
-                    and torch.equal(alone["run_0"][0]["cv"], sub["cv"])):
-                fail("whisper-tiny: encode + build_cross_cache differ from "
-                     "prefill_chunk(enc_embeds=...)'s cross caches")
-            del alone
-    errs = [float((a.float() - b.float()).abs().max())
-            for a, b in zip(out["card"][:4], out["CPU"][:4])]
-    same = bool(torch.equal(out["card"][4], out["CPU"][4]))
-    log(f"[whisper] f32 card vs CPU, {B} x {cfg.encoder_seq} frames, a "
-        f"32-token chunk and 8 decode steps: logits {errs[0]:.2e}, probe "
-        f"probs {errs[1]:.2e}, ck {errs[2]:.2e}, cv {errs[3]:.2e}, tokens "
-        f"equal {same}; wall card {walls['card']:.2f} s, CPU "
-        f"{walls['CPU']:.2f} s; card launches {launches}")
-    if max(errs) > 1e-4 or not same:
-        fail(f"whisper-tiny on the card disagrees with the CPU: {errs}, "
-             f"tokens equal {same}")
-    if launches["flash_attention"] != cfg.num_encoder_layers:
-        fail("whisper-tiny: the encoder did not run flash_attention once a "
-             "layer")
-    if launches["decode_attention"] != 8 * cfg.num_layers:
-        fail("whisper-tiny: decode_attention did not run once a layer a "
-             "step")
-    del gpu, cpu, out, cache
+    # (layout, launches a decode step per layer: the self-attention kernel)
+    for layout, step_kernel in (("contig", "decode_attention"),
+                                ("paged", "paged_decode_attention")):
+        out, walls = {}, {}
+        for where, m in (("card", gpu), ("CPU", cpu)):
+            dev = m.device
+            cache = m.init_cache(B, 64, kv_layout=layout, page_size=16)
+            if layout == "paged":           # each row's 4 pages in order
+                cache["block_table"].copy_(torch.arange(
+                    1, 1 + 4 * B, dtype=torch.int32).reshape(B, 4))
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            logits, cache, _, _ = m.prefill_chunk(
+                cache, tokens.to(dev), valid.to(dev), enc_embeds=enc.to(dev))
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            toks, cache, probs, _ = m.decode_multi(cache, tok,
+                                                   active.to(dev), k=8)
+            torch.cuda.synchronize()
+            walls[where] = time.perf_counter() - t0
+            sub = cache["run_0"][0]
+            out[where] = [x.cpu() for x in (logits, probs, sub["ck"],
+                                            sub["cv"], toks)]
+            if where == "card":
+                launches = dict(ops.launches)
+                with torch.no_grad():
+                    alone = gpu.build_cross_cache(gpu.init_cache(B, 64),
+                                                  gpu.encode(enc.to(dev)))
+                if not (torch.equal(alone["run_0"][0]["ck"], sub["ck"])
+                        and torch.equal(alone["run_0"][0]["cv"],
+                                        sub["cv"])):
+                    fail("whisper-tiny: encode + build_cross_cache differ "
+                         "from prefill_chunk(enc_embeds=...)'s cross caches")
+                del alone
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(out["card"][:4], out["CPU"][:4])]
+        same = bool(torch.equal(out["card"][4], out["CPU"][4]))
+        log(f"[whisper] f32 {layout} card vs CPU, {B} x {cfg.encoder_seq} "
+            f"frames, a 32-token chunk and 8 decode steps: logits "
+            f"{errs[0]:.2e}, probe probs {errs[1]:.2e}, ck {errs[2]:.2e}, "
+            f"cv {errs[3]:.2e}, tokens equal {same}; wall card "
+            f"{walls['card']:.2f} s, CPU {walls['CPU']:.2f} s; card "
+            f"launches {launches}")
+        if max(errs) > 1e-4 or not same:
+            fail(f"whisper-tiny {layout} on the card disagrees with the "
+                 f"CPU: {errs}, tokens equal {same}")
+        if launches["flash_attention"] != cfg.num_encoder_layers:
+            fail("whisper-tiny: the encoder did not run flash_attention once "
+                 "a layer")
+        if launches[step_kernel] != 8 * cfg.num_layers:
+            fail(f"whisper-tiny {layout}: {step_kernel} did not run once a "
+                 f"layer a step")
+        if (layout == "paged"
+                and launches["paged_decode_attention_multi"]
+                != cfg.num_layers):
+            fail("whisper-tiny paged: the prefill chunk did not run "
+                 "paged_decode_attention_multi once a layer")
+        del out, cache
+    del gpu, cpu
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2876,11 +3021,18 @@ def phase_serve_whisper(torch):
     reqs = _requests(cfg, 12, 0)
     max_len = _max_len(reqs)
     _describe(reqs, max_len)
-    knobs = dict(mode="real", kv_layout="contig", probe_interval=4,
-                 max_batch=16, max_len=max_len)
-    launches, *_ = _serve(torch, cfg, model, reqs, knobs, pred)
-    if launches["decode_attention"] <= 0:
-        fail("kernel decode_attention never launched on whisper's path")
+    served = {}
+    for layout, kernels in (("contig", ("decode_attention",)),
+                            ("paged", ("paged_decode_attention",
+                                       "paged_decode_attention_multi"))):
+        knobs = dict(mode="real", kv_layout=layout, probe_interval=4,
+                     max_batch=16, max_len=max_len, page_size=16)
+        served[layout], *_ = _serve(torch, cfg, model, reqs, knobs, pred)
+        for name in kernels:
+            if served[layout][name] <= 0:
+                fail(f"kernel {name} never launched on whisper's {layout} "
+                     f"path")
+    launches = served["contig"]
 
     masters = model.init_params(seed=0)
     tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 448)))
@@ -3002,6 +3154,207 @@ def phase_serve_moe(torch):
     torch.cuda.empty_cache()
     phase_reference(torch, (("olmoe-1b-7b", "paged"),
                             ("olmoe-1b-7b", "contig")))
+    return served
+
+
+QWEN_PROFILE_LEN = 576     # phase_profile's 300 + 256 + 4 positions, rounded
+
+
+def phase_serve_qwen_int8(torch):
+    """qwen1.5-32b with ``kv_quant=True`` at full width and depth (64
+    layers, d_model 5120, 40/40 heads of 128, d_ff 27392, vocab 152064;
+    random weights from seed 0, matmul weights bf16, the embedding and
+    unembedding float32): 68.5 GiB of weights, so only an int8 cache
+    leaves room for 16 rows and a prefill chunk's transients.
+
+    First ``qwen-smoke`` in float32 with ``kv_quant`` on the card against
+    the CPU (``phase_reference``); then granite's 12 requests served
+    contiguous (``probe_interval=4``, ``max_batch=16``): 12 of 12, every
+    decode step through the int8 ``decode_attention`` (64 launches a
+    step, no float launch), peak memory and the cache's bytes in int8
+    against bf16 at the run's ``max_len`` logged; then one decode
+    megastep and one prefill chunk profiled. Returns the serve's
+    launches."""
+    from repro_torch.serving.kv_cache import bytes_for_context
+    phase_reference(torch, (("qwen1.5-32b", "contig"),), kv_quant=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, pred = _load(torch, "qwen1.5-32b", kv_quant=True)
+    reqs = _requests(cfg, 12, 0)
+    max_len = _max_len(reqs)
+    _describe(reqs, max_len)
+    rows = 16
+    q8 = bytes_for_context(cfg, max_len)
+    bf = bytes_for_context(dataclasses.replace(cfg, kv_quant=False), max_len)
+    log(f"[qwen-int8] KV bytes a request at max_len {max_len}: int8 "
+        f"{q8 / 2**20:.2f} MiB, bf16 {bf / 2**20:.2f} MiB; {rows} rows: "
+        f"{rows * q8 / 2**30:.2f} GiB against {rows * bf / 2**30:.2f} GiB; "
+        f"weights {sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30:.2f} GiB, "
+        f"card {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+        f" GiB")
+    knobs = dict(mode="real", kv_layout="contig", probe_interval=4,
+                 max_batch=rows, max_len=max_len)
+    launches, steps, chunks = _serve(torch, cfg, model, reqs, knobs, pred)
+    log(f"[qwen-int8] served {rows} rows at most; decode_attention over "
+        f"int8 launched {launches['decode_attention_int8']} times in "
+        f"{steps} decode steps ({cfg.num_layers} layers)")
+    if launches["decode_attention_int8"] <= 0:
+        fail("kernel decode_attention (int8) never launched on qwen's path")
+    if (launches["decode_attention_int8"] != cfg.num_layers * steps
+            or launches["decode_attention"]):
+        fail(f"qwen1.5-32b int8: decode launches {launches} for {steps} "
+             f"steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = model.init_cache(16, QWEN_PROFILE_LEN)
+    phase_profile(torch, model, cache)
+    del cache, model, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+PREFIX_ROWS = 4         # rows of phase_prefix's prefix chunk and training
+
+
+def _prefix_chunk(torch, model, kv_layout, prefix, tokens, steps):
+    """``prefill_chunk(prefix_embeds=...)`` then ``steps`` greedy decode
+    steps under ``kv_layout`` (paged: each row's pages in order), on the
+    model's device; returns (first logits, decode logits, tokens, launch
+    counts of the run)."""
+    from repro_torch.kernels import ops
+    B = tokens.shape[0]
+    T = prefix.shape[1] + tokens.shape[1] + steps
+    cache = model.init_cache(B, T, kv_layout=kv_layout, page_size=16)
+    if kv_layout == "paged":
+        n = cache["block_table"].shape[1]
+        cache["block_table"].copy_(torch.arange(
+            1, 1 + B * n, dtype=torch.int32).reshape(B, n))
+    dev = model.device
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    first, cache, _, _ = model.prefill_chunk(cache, tokens.to(dev),
+                                             prefix_embeds=prefix.to(dev))
+    tok = first.argmax(-1).to(torch.int32)[:, None]
+    toks = [tok]
+    for _ in range(steps):
+        logits, cache, _, _ = model.decode_step(cache, tok)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    return (first.cpu(), logits.cpu(), torch.cat(toks, 1).cpu(),
+            dict(ops.launches))
+
+
+def phase_prefix(torch):
+    """paligemma-3b at full width and depth (18 layers, d_model 2048, 8
+    query heads over one KV head of 256, 256 prefix positions, vocab
+    257216; random weights from seed 0).
+
+    (a) granite's 12 requests served paged and contiguous: the engine
+    passes no prefix embeddings (as the reference's), so the served model
+    is text only; 12 of 12, the paged kernels, then ``decode_attention``,
+    launched. (b) ``prefill_chunk`` with a seeded 256-row bf16 prefix
+    before a 256-token chunk (T = 512 rows a sequence in the multi-query
+    kernel, G = 8 over one KV head of 256), then 4 decode steps, under
+    both layouts: finite logits, every layer's kernels launched. (c) one
+    ``forward_train`` with ``prefix_embeds`` at 4 x (256 + 256) under
+    inference mode: one ``flash_attention`` launch a layer at S = 512, a
+    finite loss over 4 x 255 labels. (d) ``paligemma-smoke`` in float32
+    with a 16-row prefix on the card against the CPU under both layouts:
+    logits within 1e-4, greedy tokens equal. Returns the launches of the
+    two serves."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    cfg, model, pred = _load(torch, "paligemma-3b")
+    reqs = _requests(cfg, 12, 0)
+    max_len = _max_len(reqs)
+    _describe(reqs, max_len)
+    served = {}
+    for layout, kernels in (("paged", ("paged_decode_attention",
+                                       "paged_decode_attention_multi")),
+                            ("contig", ("decode_attention",))):
+        knobs = dict(mode="real", kv_layout=layout, probe_interval=4,
+                     max_batch=16, max_len=max_len, page_size=16)
+        served[layout], *_ = _serve(torch, cfg, model, reqs, knobs, pred)
+        for name in kernels:
+            if served[layout][name] <= 0:
+                fail(f"kernel {name} never launched on paligemma's {layout} "
+                     f"path")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    B, P = PREFIX_ROWS, cfg.num_prefix_tokens
+    prefix = torch.from_numpy(rng.standard_normal(
+        (B, P, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, 256)))
+    for layout, want in (("paged", {"paged_decode_attention_multi": 1,
+                                    "paged_decode_attention": 4}),
+                         ("contig", {"decode_attention": 4})):
+        t0 = time.perf_counter()
+        first, last, toks, launched = _prefix_chunk(torch, model, layout,
+                                                    prefix, tokens, 4)
+        wall = time.perf_counter() - t0
+        log(f"[prefix] {cfg.name} {layout}: prefill_chunk with a {B} x {P} "
+            f"bf16 prefix before {B} x 256 tokens, then 4 decode steps: "
+            f"wall {wall:.3f} s, logits finite "
+            f"{bool(torch.isfinite(first).all() and torch.isfinite(last).all())}"
+            f", tokens {toks[0].tolist()}, launches {launched}")
+        if not (torch.isfinite(first).all() and torch.isfinite(last).all()):
+            fail(f"{cfg.name} {layout}: non-finite logits after a prefix")
+        for name, per_layer in want.items():
+            if launched[name] != per_layer * cfg.num_layers:
+                fail(f"{cfg.name} {layout} prefix chunk: {name} launched "
+                     f"{launched[name]} times")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    batch = {"tokens": tokens.cuda(), "labels": labels.cuda(),
+             "prefix_embeds": prefix.cuda()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        loss, aux = model.forward_train(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash = ops.launches["flash_attention"]
+    log(f"[prefix] {cfg.name} forward_train {B} x ({P} + 256) with "
+        f"prefix_embeds: loss {float(loss):.4f} over {int(aux['n_tok'])} "
+        f"labels, tap {tuple(aux['tap'].shape)}, wall {wall:.3f} s, "
+        f"flash_attention launches {flash}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if flash != cfg.num_layers or int(aux["n_tok"]) != B * 255:
+        fail(f"{cfg.name} forward_train with a prefix: {flash} flash "
+             f"launches, {int(aux['n_tok'])} labels")
+    if not (math.isfinite(float(loss)) and torch.isfinite(aux["tap"]).all()):
+        fail(f"{cfg.name} forward_train with a prefix: non-finite")
+    del model, pred, batch, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, gpu, cpu = _model_pair("paligemma-3b", seed=3)
+    scfg = gpu.cfg
+    prefix = torch.from_numpy(rng.standard_normal(
+        (3, scfg.num_prefix_tokens, scfg.d_model)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(1, scfg.vocab_size, (3, 24)))
+    for layout in ("paged", "contig"):
+        card = _prefix_chunk(torch, gpu, layout, prefix, tokens, 6)
+        host = _prefix_chunk(torch, cpu, layout, prefix, tokens, 6)
+        errs = [float((a - b).abs().max()) for a, b in zip(card[:2],
+                                                           host[:2])]
+        same = bool(torch.equal(card[2], host[2]))
+        log(f"[prefix] {scfg.name} f32 {layout} with a 3 x "
+            f"{scfg.num_prefix_tokens} prefix, card vs CPU: logits "
+            f"{errs[0]:.2e} (prefill), {errs[1]:.2e} (6th decode step), "
+            f"tokens equal {same}")
+        if max(errs) > 1e-4 or not same:
+            fail(f"{scfg.name} {layout} with a prefix: the card disagrees "
+                 f"with the CPU: {errs}, tokens equal {same}")
     return served
 
 
@@ -3249,6 +3602,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_moe(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_prefix(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen = phase_serve_qwen_int8(torch)
 
     kernels = []
     for kname, label, source, replaces, launches in (
@@ -3262,6 +3621,9 @@ def main():
              "paged_decode_attention.py:179", granite),
             ("decode_attention", "decode_attention[gemma2-9b,ring]",
              "decode_attention.cu", "decode_attention.py:71", gemma2),
+            ("decode_attention_int8",
+             "decode_attention_int8[qwen1.5-32b,serve]",
+             "decode_attention.cu", "decode_attention.py:71", qwen),
             ("probe_update", "probe_update[gemma2-9b]", "probe.cu",
              "probe.py:55", step_launches),
             ("flash_attention", "flash_attention[trail-llama]",

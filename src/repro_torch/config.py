@@ -4,8 +4,7 @@ A single :class:`ModelConfig` dataclass describes every architecture in the
 assigned pool (dense GQA, MoE, SSM, hybrid, encoder-decoder, VLM). The port
 keeps its own copy so that it imports nothing of the reference package;
 configs load from ``repro_torch/configs``. The port's model runs every
-layer kind and the encoder-decoder, and raises ``NotImplementedError``
-for prefix embeds and ``kv_quant``.
+layer kind, the encoder-decoder, prefix embeds and ``kv_quant``.
 
 Layer heterogeneity (gemma-style local:global alternation, hybrid stacks) is
 expressed with ``layer_kinds`` — a tuple of per-layer kind strings, which the

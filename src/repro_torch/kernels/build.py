@@ -38,8 +38,8 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel launches since the last ``reset_launches()``, keyed by kernel;
 #: each binding adds one where it launches its kernel, and nowhere else
 launches = {"paged_decode_attention": 0, "paged_decode_attention_multi": 0,
-             "decode_attention": 0, "probe_update": 0, "flash_attention": 0,
-             "ssd_scan": 0}
+             "decode_attention": 0, "decode_attention_int8": 0,
+             "probe_update": 0, "flash_attention": 0, "ssd_scan": 0}
 
 
 def _build_dir() -> Path:
@@ -130,17 +130,19 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def check_on_card(device, **tensors) -> None:
+def check_on_card(device, align: int = 16, **tensors) -> None:
     """Raise unless every tensor lies on ``device`` (a CUDA device), is
-    contiguous and starts on a 16-byte boundary, as the kernels read."""
+    contiguous and starts on an ``align``-byte boundary: 16 where a
+    kernel reads 16-byte vectors, 4 where it reads one element at a
+    time."""
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != device:
             raise ValueError(f"{name} must lie on the CUDA device {device}, "
                              f"not {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def raise_on(err: int, name: str) -> None:

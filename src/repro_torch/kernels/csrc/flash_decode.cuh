@@ -1,10 +1,11 @@
 // Device code of the flash-decode kernels (one query per sequence), for
 // Hopper (sm_90a), and the helpers the other attention kernels share.
 //
-// decode_kernel<T, HD, GMAX, Rows> attends the G = H/KH query heads of one
-// (KV head, sequence) over that sequence's token rows. Where the rows live
-// is the only thing the two callers differ in, so it is a template
-// argument:
+// decode_kernel<T, KV, HD, GMAX, Rows> attends the G = H/KH query heads of
+// one (KV head, sequence) over that sequence's token rows. T is the type of
+// the query and the output, KV the type the K/V rows are stored in: T
+// itself, or int8_t for an int8 slot cache (below). Where the rows live is
+// the only thing the two callers differ in, so it is a template argument:
 //   PagedRows (paged_decode_attention.cu) - token n of sequence b sits in
 //     slot n % ps of physical page block_table[b][n / ps]; page 0 is the
 //     null page and is never read;
@@ -63,6 +64,17 @@
 //    CTA's shared memory alive until all have read it. One launch a call,
 //    no workspace, no atomics; the result does not depend on scheduling.
 //
+// int8 K/V (KV = int8_t, slot caches only). Each (token, KV head) row
+// carries a float32 scale for K and one for V (k_scale, v_scale: (B, M, KH)),
+// and stands for int8 value times scale. The scale factors out of the dot
+// and of the weighted sum: s = k_scale * (q . k_int8) before the hd^-0.5
+// and the softcap, and p * v_scale weights the V row, while l sums p alone.
+// So no element is dequantised: a 16-byte vector is 16 int8 elements (VEC
+// and the row bytes follow from sizeof(KV)), a lane converts its int8 to
+// float32 and does the same FMAs as for bf16, and the scan, which reads
+// each candidate's kpos, reads its two scales beside it and lists them with
+// the slot. A row then moves 2 * hd + 8 bytes in place of 4 * hd (bf16).
+//
 // What is left: the scan and the stream of one CTA do not overlap (a pass
 // lists its rows, then loads them); a CTA's first bytes wait for q_pos,
 // the block table and kpos in turn, so a short row pays that chain, the
@@ -111,6 +123,28 @@ __device__ __forceinline__ void to_f32<__nv_bfloat16>(const uint4& raw,
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// 16 int8 values, each byte sign-extended by an arithmetic shift.
+template <>
+__device__ __forceinline__ void to_f32<int8_t>(const uint4& raw, float* out) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[4 * i + j] = (float)((int)(w[i] << (24 - 8 * j)) >> 24);
+}
+
+// N consecutive elements of type T from global memory (16-byte aligned), as
+// float32: N / (16 / sizeof(T)) vector loads.
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const T* p, float* out) {
+  constexpr int PER = 16 / (int)sizeof(T);
+  static_assert(N % PER == 0, "whole vectors");
+#pragma unroll
+  for (int i = 0; i < N / PER; ++i)
+    to_f32<T>(*reinterpret_cast<const uint4*>(p + i * PER), out + i * PER);
 }
 
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
@@ -190,15 +224,16 @@ __host__ __device__ constexpr int scatter_owner(int idx, int n, int tpr) {
   return lane;
 }
 
-template <typename T, int HD, int GMAX>
+// KV: the type the K/V rows are stored in.
+template <typename KV, int HD, int GMAX>
 struct Tiling {
-  static constexpr int VEC = 16 / sizeof(T);          // elements per vector
+  static constexpr int VEC = 16 / sizeof(KV);         // elements per vector
   static constexpr int NV = HD / VEC;                 // vectors per row
   static constexpr int LV = NV > 32 ? NV / 32 : 1;    // vectors per lane
   static constexpr int TPR = NV / LV;                 // lanes per row
   static constexpr int EPL = VEC * LV;                // elements per lane
   static constexpr int RW = 32 / TPR;                 // groups per warp
-  static constexpr int ROWB = HD * (int)sizeof(T);    // bytes of a row
+  static constexpr int ROWB = HD * (int)sizeof(KV);   // bytes of a row
   // rows per group per stage: fewer where the scores of GMAX heads would
   // crowd the registers, and a stage of K and V at most 8 KB
   static constexpr int RPG_REG = GMAX * EPL >= 64 ? 4 : 8;
@@ -215,32 +250,40 @@ struct Tiling {
   static_assert(MERGE <= RING, "warp partials fit in the ring");
 };
 
+template <typename KV>
+constexpr bool kQuantized = sizeof(KV) == 1;  // int8 K/V with scales
+
 // Dynamic shared memory of one CTA: the ring, the CTA's partial (read by
-// the cluster), the merges' scratch, the row list, the scan counts and the
-// staged ints.
-template <int HD, int GMAX>
+// the cluster), the merges' scratch, the listed rows' scales (int8 K/V), the
+// row list, the scan counts and the staged ints.
+template <typename KV, int HD, int GMAX>
 __host__ __device__ constexpr int smem_floats_after_ring() {
   return GMAX * HD + 2 * GMAX           // pacc, pm, pl
          + 2 * kMaxSplit * GMAX + GMAX  // rm, rl, gl
-         + kWarps * GMAX;               // wsc
+         + kWarps * GMAX                // wsc
+         + (kQuantized<KV> ? 2 * kList : 0);  // lks, lvs
 }
 
-template <typename T, int HD, int GMAX>
+template <typename KV, int HD, int GMAX>
 __host__ __device__ constexpr size_t smem_bytes(int staged) {
-  return (size_t)Tiling<T, HD, GMAX>::RING +
-         4 * (size_t)(smem_floats_after_ring<HD, GMAX>() + kList + 33 +
+  return (size_t)Tiling<KV, HD, GMAX>::RING +
+         4 * (size_t)(smem_floats_after_ring<KV, HD, GMAX>() + kList + 33 +
                       staged);
 }
 
 // One CTA per (split, KV head, sequence): grid (nsplit, KH, B), clusters of
-// (nsplit, 1, 1), kThreads threads.
-template <typename T, int HD, int GMAX, typename Rows>
+// (nsplit, 1, 1), kThreads threads. ksc/vsc: the (B, M, KH) scales of int8
+// K/V, read at [slot * KH + kh]; unused (null) otherwise.
+template <typename T, typename KV, int HD, int GMAX, typename Rows>
 __global__ void __launch_bounds__(kThreads, 2) decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const int* __restrict__ kpos, Rows rows,
+    const T* __restrict__ q, const KV* __restrict__ k,
+    const KV* __restrict__ v, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ kpos, Rows rows,
     const int* __restrict__ q_pos, T* __restrict__ out, int H, int KH,
     float scale, int window, float softcap) {
-  using Tl = Tiling<T, HD, GMAX>;
+  using Tl = Tiling<KV, HD, GMAX>;
+  constexpr bool kQuant = kQuantized<KV>;
+  constexpr int kSL = kQuant ? kList : 0;  // scales listed beside the rows
   constexpr int VEC = Tl::VEC, NV = Tl::NV, LV = Tl::LV, TPR = Tl::TPR;
   constexpr int EPL = Tl::EPL, RW = Tl::RW, ROWB = Tl::ROWB, RPG = Tl::RPG;
   constexpr int NR = Tl::NR, STAGE = Tl::STAGE, CPL = Tl::CPL;
@@ -255,7 +298,9 @@ __global__ void __launch_bounds__(kThreads, 2) decode_kernel(
   float* rl = rm + kMaxSplit * GMAX;       // kMaxSplit x GMAX: each CTA's l
   float* gl = rl + kMaxSplit * GMAX;       // GMAX: the merged l
   float* wsc = gl + GMAX;                  // kWarps x GMAX: warp scales
-  int* list = reinterpret_cast<int*>(wsc + kWarps * GMAX);
+  float* lks = wsc + kWarps * GMAX;        // kSL: the listed rows' scales
+  float* lvs = lks + kSL;
+  int* list = reinterpret_cast<int*>(lvs + kSL);
   int* cnt = list + kList;                 // 32 counts, then the total
   int* staged = cnt + 33;
 
@@ -278,9 +323,9 @@ __global__ void __launch_bounds__(kThreads, 2) decode_kernel(
 #pragma unroll
     for (int lv = 0; lv < LV; ++lv) {
       if (g < G) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            q + ((size_t)b * H + kh * G + g) * HD + (lv * TPR + li) * VEC);
-        to_f32<T>(raw, qr[g] + lv * VEC);
+        load_f32<T, VEC>(
+            q + ((size_t)b * H + kh * G + g) * HD + (lv * TPR + li) * VEC,
+            qr[g] + lv * VEC);
       } else {
 #pragma unroll
         for (int j = 0; j < VEC; ++j) qr[g][lv * VEC + j] = 0.f;
@@ -298,20 +343,26 @@ __global__ void __launch_bounds__(kThreads, 2) decode_kernel(
   const int ntiles = (ntok + kTile - 1) / kTile;
   const int ncand =
       rank < ntiles ? (ntiles - rank + nsplit - 1) / nsplit * kTile : 0;
-  const T* kb = k + (size_t)kh * HD;
-  const T* vb = v + (size_t)kh * HD;
+  const KV* kb = k + (size_t)kh * HD;
+  const KV* vb = v + (size_t)kh * HD;
   const size_t rstride = (size_t)KH * HD;  // elements from slot to slot
   unsigned char* wring = ring + w * kStages * STAGE;
 
   for (int c0 = 0; c0 < ncand; c0 += kList) {
     // scan: candidate c of this CTA is token c % kTile of its tile c/kTile
     int slot[kScan], kp[kScan];
+    float ks[kQuant ? kScan : 1], vs[kQuant ? kScan : 1];
 #pragma unroll
     for (int i = 0; i < kScan; ++i) {
       const int c = c0 + i * kThreads + tid;
       const int n = (rank + c / kTile * nsplit) * kTile + c % kTile;
       slot[i] = c < ncand && n < ntok ? rows.slot(b, n, staged) : -1;
       kp[i] = slot[i] >= 0 ? kpos[slot[i]] : -1;
+      if constexpr (kQuant) {  // read beside kpos, not after it
+        const size_t si = (size_t)(slot[i] >= 0 ? slot[i] : 0) * KH + kh;
+        ks[i] = slot[i] >= 0 ? ksc[si] : 0.f;
+        vs[i] = slot[i] >= 0 ? vsc[si] : 0.f;
+      }
     }
     unsigned bal[kScan];
 #pragma unroll
@@ -335,8 +386,14 @@ __global__ void __launch_bounds__(kThreads, 2) decode_kernel(
     const unsigned below = (1u << lane) - 1u;
 #pragma unroll
     for (int i = 0; i < kScan; ++i)
-      if (bal[i] >> lane & 1u)
-        list[cnt[i * kWarps + w] + __popc(bal[i] & below)] = slot[i];
+      if (bal[i] >> lane & 1u) {
+        const int at = cnt[i * kWarps + w] + __popc(bal[i] & below);
+        list[at] = slot[i];
+        if constexpr (kQuant) {
+          lks[at] = ks[i];
+          lvs[at] = vs[i];
+        }
+      }
     __syncthreads();
     const int nv = cnt[32];
 
@@ -378,9 +435,9 @@ __global__ void __launch_bounds__(kThreads, 2) decode_kernel(
         float kf[EPL];
 #pragma unroll
         for (int lv = 0; lv < LV; ++lv)
-          to_f32<T>(*reinterpret_cast<const uint4*>(
-                        st + r * ROWB + (lv * TPR + li) * 16),
-                    kf + lv * VEC);
+          to_f32<KV>(*reinterpret_cast<const uint4*>(
+                         st + r * ROWB + (lv * TPR + li) * 16),
+                     kf + lv * VEC);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
           float d = 0.f;
@@ -396,9 +453,12 @@ __global__ void __launch_bounds__(kThreads, 2) decode_kernel(
 #pragma unroll
       for (int j = 0; j < VPL; ++j) {
         const int idx = scatter_index<N, TPR>(li, j);
+        const int row = row0 + grp + idx % RPG * RW;
         gv[j] = idx / RPG;
-        okv[j] = gv[j] < G && row0 + grp + idx % RPG * RW < nv;
-        mine[j] = okv[j] ? cap_score(part[j] * scale, softcap) : kNegInf;
+        okv[j] = gv[j] < G && row < nv;
+        float dot = part[j];
+        if constexpr (kQuant) dot *= okv[j] ? lks[row] : 0.f;
+        mine[j] = okv[j] ? cap_score(dot * scale, softcap) : kNegInf;
       }
       float sc[GMAX][RPG];
 #pragma unroll
@@ -442,15 +502,18 @@ __global__ void __launch_bounds__(kThreads, 2) decode_kernel(
         float vf[EPL];
 #pragma unroll
         for (int lv = 0; lv < LV; ++lv)
-          to_f32<T>(*reinterpret_cast<const uint4*>(
-                        st + (NR + r) * ROWB + (lv * TPR + li) * 16),
-                    vf + lv * VEC);
+          to_f32<KV>(*reinterpret_cast<const uint4*>(
+                         st + (NR + r) * ROWB + (lv * TPR + li) * 16),
+                     vf + lv * VEC);
+        float vsr = 1.f;  // p * v_scale weights an int8 V row
+        if constexpr (kQuant) vsr = row0 + r < nv ? lvs[row0 + r] : 0.f;
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
           if (g >= G) break;
+          const float wt = kQuant ? sc[g][i] * vsr : sc[g][i];
 #pragma unroll
           for (int j = 0; j < EPL; ++j)
-            acc[g][j] = fmaf(sc[g][i], vf[j], acc[g][j]);
+            acc[g][j] = fmaf(wt, vf[j], acc[g][j]);
         }
       }
       __syncwarp();  // every lane is done with this stage before its refill
@@ -615,15 +678,15 @@ inline int split_count(const LaunchInfo& info, int B, int KH, int cap) {
 
 // Launch the instance for GMAX >= G; cap = the tokens a row can hold (M or
 // pmax * ps). With split != nullptr, only report the split it would use.
-template <typename T, int HD, int GMAX, typename Rows>
+template <typename T, typename KV, int HD, int GMAX, typename Rows>
 cudaError_t launch_group(const void* q, const void* k, const void* v,
-                         const int* kpos, Rows rows, const int* qpos,
-                         void* out, int B, int H, int KH, int cap,
-                         float scale, int window, float softcap,
-                         cudaStream_t stream, int* split) {
-  auto kernel = decode_kernel<T, HD, GMAX, Rows>;
+                         const float* ksc, const float* vsc, const int* kpos,
+                         Rows rows, const int* qpos, void* out, int B, int H,
+                         int KH, int cap, float scale, int window,
+                         float softcap, cudaStream_t stream, int* split) {
+  auto kernel = decode_kernel<T, KV, HD, GMAX, Rows>;
   static LaunchInfo info;
-  const size_t smem = smem_bytes<T, HD, GMAX>(rows.staged());
+  const size_t smem = smem_bytes<KV, HD, GMAX>(rows.staged());
   cudaError_t e = launch_info(kernel, smem, info);
   if (e != cudaSuccess) return e;
   const int nsplit = split_count(info, B, KH, cap);
@@ -643,24 +706,27 @@ cudaError_t launch_group(const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, (const T*)q, (const T*)k,
-                         (const T*)v, kpos, rows, qpos, (T*)out, H, KH,
-                         scale, window, softcap);
+  e = cudaLaunchKernelEx(&cfg, kernel, (const T*)q, (const KV*)k,
+                         (const KV*)v, ksc, vsc, kpos, rows, qpos, (T*)out,
+                         H, KH, scale, window, softcap);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // Launch the instance for the query group size G = H / KH (at most 8).
-template <typename T, int HD, typename Rows>
+// ksc/vsc: the scales of int8 K/V (KV = int8_t), null otherwise.
+template <typename T, typename KV, int HD, typename Rows>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
+                          const float* ksc, const float* vsc,
                           const int* kpos, Rows rows, const int* qpos,
                           void* out, int B, int H, int KH, int cap,
                           float scale, int window, float softcap,
                           cudaStream_t stream, int* split = nullptr) {
   const int G = H / KH;
-#define FD_LAUNCH(GMAX)                                                     \
-  return launch_group<T, HD, GMAX, Rows>(q, k, v, kpos, rows, qpos, out, B, \
-                                         H, KH, cap, scale, window, softcap, \
-                                         stream, split)
+#define FD_LAUNCH(GMAX)                                                 \
+  return launch_group<T, KV, HD, GMAX, Rows>(q, k, v, ksc, vsc, kpos,   \
+                                             rows, qpos, out, B, H, KH, \
+                                             cap, scale, window,        \
+                                             softcap, stream, split)
   if (G <= 2) FD_LAUNCH(2);
   if (G <= 4) FD_LAUNCH(4);
   FD_LAUNCH(8);

@@ -582,10 +582,11 @@ int single(const void* q, const void* k_pages, const void* v_pages,
   const PagedRows rows{static_cast<const int*>(block_table), pmax, ps};
   const int* qp = static_cast<const int*>(q_pos);
   if (H % KH != 0 || H / KH > 8) return (int)cudaErrorInvalidValue;
-#define DEC(T, HD)                                                          \
-  return (int)launch_decode<T, HD>(q, k_pages, v_pages, kp, rows, qp, out, \
-                                   B, H, KH, pmax * ps, scale, window,      \
-                                   softcap, s, split)
+#define DEC(T, HD)                                                       \
+  return (int)launch_decode<T, T, HD>(q, k_pages, v_pages, nullptr,       \
+                                      nullptr, kp, rows, qp, out, B, H, KH, \
+                                      pmax * ps, scale, window, softcap, s, \
+                                      split)
   if (dtype == 0) {
     if (hd == 32) DEC(float, 32);
     if (hd == 64) DEC(float, 64);

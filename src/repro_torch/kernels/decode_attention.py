@@ -9,7 +9,11 @@ launch was refused, and counts the launch in ``build.launches``. The
 library builds at the first launch (see ``build.py``). Shapes and
 semantics are those of ``ref.decode_attention_ref``; with ``window=0``
 the kernel reads slots ``0..q_pos`` only, which is exact for caches
-written by ``models.attention.cache_write`` (position p in slot p).
+written by ``models.attention.cache_write`` (position p in slot p). An
+int8 cache (the model's ``kv_quant``) comes with its float32 scales and
+launches the same kernel body with int8 K/V rows
+(``decode_attention_int8_launch``); its launches are counted apart, as
+``decode_attention_int8``.
 """
 
 from __future__ import annotations
@@ -30,19 +34,46 @@ def _library():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _lib = build.bind("decode_attention", {
             "decode_attention_launch":
-                [ptr] * 6 + [i32] * 6 + [f32, i32, f32, ptr]})
+                [ptr] * 6 + [i32] * 6 + [f32, i32, f32, ptr],
+            "decode_attention_int8_launch":
+                [ptr] * 8 + [i32] * 6 + [f32, i32, f32, ptr]})
     return _lib
 
 
+def _check_scales(k, k_scale, v_scale):
+    """An int8 cache's scales: float32 (B, M, KH), contiguous, on k's
+    device and 4-byte aligned (they are read one at a time)."""
+    if k_scale is None or v_scale is None:
+        raise TypeError("int8 k/v need k_scale and v_scale")
+    build.check_on_card(k.device, align=4, k_scale=k_scale, v_scale=v_scale)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, not {t.dtype}")
+        if t.shape != k.shape[:3]:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{tuple(k.shape[:3])}")
+
+
 def decode_attention(q, k, v, kpos, q_pos, *, window: int = 0,
-                     softcap: float = 0.0):
-    """Launch the kernel. q: (B,H,hd); k/v: (B,M,KH,hd); kpos: (B,M) int32;
-    q_pos: (B,) int32 -> (B,H,hd) in q's dtype."""
-    build.check_on_card(q.device, q=q, k=k, v=v, kpos=kpos, q_pos=q_pos)
+                     softcap: float = 0.0, k_scale=None, v_scale=None):
+    """Launch the kernel. q: (B,H,hd); k/v: (B,M,KH,hd) in q's dtype, or
+    int8 with k_scale/v_scale (B,M,KH) float32; kpos: (B,M) int32; q_pos:
+    (B,) int32 -> (B,H,hd) in q's dtype."""
+    build.check_on_card(q.device, q=q, k=k, v=v)
+    # kpos and q_pos are read one int at a time: a layer's kpos row of a
+    # stacked cache may start 4 bytes past a 16-byte boundary
+    build.check_on_card(q.device, align=4, kpos=kpos, q_pos=q_pos)
     if q.dtype not in build.DTYPE_CODE:
         raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16)")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    int8 = k.dtype == torch.int8
+    if int8:
+        if v.dtype != torch.int8:
+            raise TypeError(f"k is int8 but v is {v.dtype}")
+        _check_scales(k, k_scale, v_scale)
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"k/v dtypes {k.dtype}/{v.dtype} != q dtype {q.dtype}")
+    elif k_scale is not None or v_scale is not None:
+        raise TypeError("k_scale/v_scale go with int8 k/v only")
     if kpos.dtype != torch.int32 or q_pos.dtype != torch.int32:
         raise TypeError("kpos and q_pos must be int32")
     if q.dim() != 3 or k.dim() != 4:
@@ -62,10 +93,19 @@ def decode_attention(q, k, v, kpos, q_pos, *, window: int = 0,
     out = torch.empty_like(q)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
-        q_pos.data_ptr(), out.data_ptr(), build.DTYPE_CODE[q.dtype], B, H,
-        KH, hd, M, hd ** -0.5, int(window), float(softcap), stream)
-    build.raise_on(err, "decode_attention")
-    build.launches["decode_attention"] += 1
+    sizes = (build.DTYPE_CODE[q.dtype], B, H, KH, hd, M, hd ** -0.5,
+             int(window), float(softcap), stream)
+    if int8:
+        name = "decode_attention_int8"
+        err = lib.decode_attention_int8_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), kpos.data_ptr(), q_pos.data_ptr(),
+            out.data_ptr(), *sizes)
+    else:
+        name = "decode_attention"
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
+            q_pos.data_ptr(), out.data_ptr(), *sizes)
+    build.raise_on(err, name)
+    build.launches[name] += 1
     return out

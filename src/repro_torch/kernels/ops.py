@@ -20,14 +20,18 @@ launches = build.launches
 reset_launches = build.reset_launches
 
 
-def decode_attention(q, k, v, kpos, q_pos, *, window=0, softcap=0.0):
+def decode_attention(q, k, v, kpos, q_pos, *, window=0, softcap=0.0,
+                     k_scale=None, v_scale=None):
     """Single-step decode attention against a contiguous or ring slot
-    cache."""
+    cache; an int8 cache comes with its per-(slot, KV head) float32
+    scales ``k_scale``/``v_scale``."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, kpos, q_pos, window=window,
-                                        softcap=softcap)
+                                        softcap=softcap, k_scale=k_scale,
+                                        v_scale=v_scale)
     return _dec.decode_attention(q, k, v, kpos, q_pos, window=window,
-                                 softcap=softcap)
+                                 softcap=softcap, k_scale=k_scale,
+                                 v_scale=v_scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,

@@ -64,14 +64,25 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+def _deq(x, scale):
+    """x in float32, times its per-(token, KV head) scale when given (an
+    int8 cache), as the reference's ``attend`` dequantises."""
+    x = x.float()
+    return x if scale is None else x * scale[..., None].float()
+
+
 def decode_attention_ref(q, k, v, kpos, q_pos, *, window: int = 0,
-                         softcap: float = 0.0):
-    """q: (B,H,hd) one query/row; k/v: (B,M,KH,hd); kpos: (B,M); q_pos: (B,)."""
+                         softcap: float = 0.0, k_scale=None, v_scale=None):
+    """q: (B,H,hd) one query/row; k/v: (B,M,KH,hd); kpos: (B,M); q_pos: (B,).
+
+    k_scale/v_scale: (B,M,KH) float32 scales of an int8 cache (None for a
+    float one); each K/V row is dequantised by its scale."""
     B, H, hd = q.shape
     KH = k.shape[2]
     G = H // KH
     qg = q.reshape(B, KH, G, hd).float()
-    scores = torch.einsum("bkgh,bmkh->bkgm", qg, k.float()) * (hd ** -0.5)
+    scores = torch.einsum("bkgh,bmkh->bkgm", qg, _deq(k, k_scale)) * (
+        hd ** -0.5)
     scores = _softcap(scores, softcap)
     valid = (kpos >= 0) & (kpos <= q_pos[:, None])
     if window:
@@ -79,7 +90,7 @@ def decode_attention_ref(q, k, v, kpos, q_pos, *, window: int = 0,
     vmask = valid[:, None, None, :]
     scores = torch.where(vmask, scores, NEG_INF)
     out = torch.einsum("bkgm,bmkh->bkgh", _masked_softmax(scores, vmask),
-                       v.float())
+                       _deq(v, v_scale))
     return out.reshape(B, H, hd).to(q.dtype)
 
 

@@ -11,7 +11,9 @@ Two cache layouts:
 
 * slot caches (``k``/``v``/``kpos``), one row of slots per sequence: the
   contiguous layout (slot = position) and the rings of sliding-window
-  layers (slot = position % ring, under either engine layout);
+  layers (slot = position % ring, under either engine layout); under
+  ``cfg.kv_quant`` int8 K/V with float32 per-(token, KV head) scales
+  (``k_scale``/``v_scale``);
 * the paged cache (``pk``/``pv``/``pkpos``): K/V in a pool of fixed-size
   pages shared by every sequence and addressed through a (B, pmax) block
   table; physical page 0 is the null page, whose ``pkpos`` stays -1.
@@ -275,17 +277,43 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
     Each row holds ``min(window, max_len)`` ring slots for a windowed
     layer, else ``max_len`` slots, plus one sink slot at the end: the
     writes that the reference drops land there (see ``cache_write``), and
-    its ``kpos`` stays -1, so it is never attended.
+    its ``kpos`` stays -1, so it is never attended. With ``cfg.kv_quant``
+    the K/V payload is int8 with float32 per-(token, KV head) scales
+    ``k_scale``/``v_scale`` of shape (n_layers, batch, slots + 1, KH), as
+    in the reference: half the bytes of a bf16 cache, for MHA decode
+    shapes whose bf16 cache does not fit (qwen1.5-32b).
     """
-    if cfg.kv_quant:
-        raise NotImplementedError("kv_quant is not ported")
     slots = min(window, max_len) if window else max_len
     shape = (n_layers, batch, slots + 1, cfg.num_kv_heads, cfg.head_dim)
-    return {
-        "kpos": torch.full(shape[:3], -1, dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=cdtype(cfg), device=device),
-        "v": torch.zeros(shape, dtype=cdtype(cfg), device=device),
-    }
+    cache = {"kpos": torch.full(shape[:3], -1, dtype=torch.int32,
+                                device=device)}
+    kv_dtype = torch.int8 if cfg.kv_quant else cdtype(cfg)
+    for name in ("k", "v"):
+        cache[name] = torch.zeros(shape, dtype=kv_dtype, device=device)
+        if cfg.kv_quant:
+            cache[name + "_scale"] = torch.zeros(shape[:4],
+                                                 dtype=torch.float32,
+                                                 device=device)
+    return cache
+
+
+def _quantize(x):
+    """x: (B,S,KH,hd) -> (int8 values, float32 per-(token, head) scales).
+
+    As the reference computes it: the scale is max |x| / 127 (at least
+    1e-12), and the values round(x / scale), half to even, clipped to
+    +-127; the division is kept (not a multiply by the reciprocal), so the
+    payloads and scales equal the reference's in float32."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize(q, scale):
+    """Invert ``_quantize``: int8 values times per-(token, head) scales,
+    in float32."""
+    return q.float() * scale[..., None].float()
 
 
 def cache_write(cache_l: dict, k_new, v_new, positions, window: int):
@@ -304,10 +332,12 @@ def cache_write(cache_l: dict, k_new, v_new, positions, window: int):
     slot (index ``slots``) with position -1, so the sink's ``kpos`` stays
     -1 and its K/V, whichever entry wins there, are never attended. The
     last entry per slot is found with a ``scatter_reduce`` of ``amax`` over
-    the entry index, which has one answer.
+    the entry index, which has one answer. An int8 cache (``k_scale`` and
+    ``v_scale`` present) takes the quantised values and their scales
+    through the same slot index.
     """
-    k, v, kpos = cache_l["k"], cache_l["v"], cache_l["kpos"]
-    B, M, KH, hd = k.shape
+    kpos = cache_l["kpos"]
+    B, M, KH, hd = cache_l["k"].shape
     slots = M - 1
     S = positions.shape[1]
     ok = positions >= 0
@@ -325,9 +355,13 @@ def cache_write(cache_l: dict, k_new, v_new, positions, window: int):
         slot = torch.where(ok, slot, slots)
     rows = torch.arange(B, device=slot.device)[:, None] * M
     flat = (rows + slot).reshape(-1)
-    for cache, new in ((k, k_new), (v, v_new)):
-        cache.view(B * M, KH, hd).index_copy_(
-            0, flat, new.reshape(-1, KH, hd).to(cache.dtype))
+    for name, new in (("k", k_new), ("v", v_new)):
+        if name + "_scale" in cache_l:      # int8: the values and scales
+            new, scale = _quantize(new)
+            cache_l[name + "_scale"].view(B * M, KH).index_copy_(
+                0, flat, scale.reshape(-1, KH))
+        cache_l[name].view(B * M, KH, hd).index_copy_(
+            0, flat, new.reshape(-1, KH, hd).to(cache_l[name].dtype))
     kpos.view(B * M).index_copy_(
         0, flat, torch.where(ok, positions, -1).reshape(-1).to(torch.int32))
     return cache_l
@@ -340,11 +374,13 @@ def self_attention_cached(cfg: ModelConfig, p, h, cache_l, q_pos, *,
     h: (B,S,d); cache_l holds this layer's slots (updated in place); q_pos:
     (B,S) absolute positions of the chunk tokens. Returns (out (B,S,d),
     cache_l). Decode (S=1) writes the token first and attends over the
-    updated cache with the flash-decode kernel: a ring slot overwritten by
-    the new token held a position <= q_pos - window, already masked. A
-    prefill chunk attends over the pre-write cache plus the fresh in-chunk
-    K/V, then writes: writing first would let ring slots be overwritten by
-    later in-chunk tokens that earlier queries still need.
+    updated cache with the flash-decode kernel (an int8 cache with its
+    scales): a ring slot overwritten by the new token held a position <=
+    q_pos - window, already masked. A prefill chunk attends over the
+    pre-write cache (an int8 one dequantised into the chunk's dtype) plus
+    the fresh, unquantised in-chunk K/V, then writes: writing first would
+    let ring slots be overwritten by later in-chunk tokens that earlier
+    queries still need.
     """
     q, k, v = project_qkv(cfg, p, h)
     if cfg.use_rope:
@@ -356,10 +392,16 @@ def self_attention_cached(cfg: ModelConfig, p, h, cache_l, q_pos, *,
         out = ops.decode_attention(
             q[:, 0].contiguous(), cache_l["k"], cache_l["v"], cache_l["kpos"],
             q_pos[:, 0].contiguous(), window=window,
-            softcap=cfg.attn_logit_softcap)[:, None]
+            softcap=cfg.attn_logit_softcap, k_scale=cache_l.get("k_scale"),
+            v_scale=cache_l.get("v_scale"))[:, None]
         return out.reshape(B, S, cfg.q_dim) @ p.wo.to(h.dtype), cache_l
-    k_all = torch.cat([cache_l["k"], k.to(cache_l["k"].dtype)], dim=1)
-    v_all = torch.cat([cache_l["v"], v.to(cache_l["v"].dtype)], dim=1)
+    if "k_scale" in cache_l:
+        k_cache = dequantize(cache_l["k"], cache_l["k_scale"]).to(k.dtype)
+        v_cache = dequantize(cache_l["v"], cache_l["v_scale"]).to(v.dtype)
+    else:
+        k_cache, v_cache = cache_l["k"], cache_l["v"]
+    k_all = torch.cat([k_cache, k.to(k_cache.dtype)], dim=1)
+    v_all = torch.cat([v_cache, v.to(v_cache.dtype)], dim=1)
     kpos_all = torch.cat([cache_l["kpos"], q_pos.to(torch.int32)], dim=1)
     out = attend(cfg, q, k_all, v_all, q_pos, kpos_all, window=window)
     cache_write(cache_l, k, v, q_pos, window)

@@ -15,7 +15,7 @@ and exposes the forward passes of the reference
   build_cross_cache(cache, enc_out)        -> cache with each layer's ck/cv
   init_cache(batch, max_len, kv_layout)    -> cache dict ("contig" slot
                                               caches or "paged" KV pool)
-  prefill_chunk(cache, tokens, valid, enc_embeds=)
+  prefill_chunk(cache, tokens, valid, prefix_embeds=, enc_embeds=)
                                            -> (logits_last, cache, tap_sum, n_new)
   decode_step(cache, tokens, active)       -> (logits, cache, tap, probe_logits)
   decode_multi(cache, tokens, active, budget, k=, eos_id=)
@@ -30,9 +30,12 @@ arctic's dense residual), Mamba-2 (``KIND_SSM``) and hybrid
 (``KIND_HYBRID``) stacks are ported, with learned positions, and the
 encoder-decoder (whisper: LayerNorm, the biased GELU MLP, a non-causal
 encoder through the ``flash_attention`` kernel, cross-attention over its
-output), so the gemma, olmoe, arctic, mamba2, hymba and whisper configs
-run; ``kv_quant``, prefix embeds and the paged layout of a
-cross-attention model raise ``NotImplementedError``. The SSM layers'
+output, per-slot cross caches beside either KV layout), so every config
+runs. ``cfg.kv_quant`` keeps the slot caches in int8 with per-(token, KV
+head) scales (decode through the ``decode_attention`` kernel reading
+int8; the paged layout refuses it, as the reference's does), and a VLM's
+prefix embeddings (paligemma) enter ``forward_train`` and
+``prefill_chunk`` through ``prefix_embeds``. The SSM layers'
 gradient comes from ``models.ssm.SSDScan``: the scan kernel runs forward,
 and the backward differentiates its plain version, on the card as on the
 CPU.
@@ -69,10 +72,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)} are not ported (only "
             f"{', '.join(tfm.PORTED_KINDS)})")
-    if cfg.kv_quant:
-        raise NotImplementedError(f"{cfg.name}: kv_quant is not ported")
-    if cfg.num_prefix_tokens:
-        raise NotImplementedError(f"{cfg.name}: prefix embeds are not ported")
 
 
 class Encoder(nn.Module):
@@ -292,14 +291,18 @@ class Model(nn.Module):
                 sub["cv"] = torch.stack([v for _, v in kvs])
         return cache
 
-    def _train_trunk(self, tokens, enc_out=None):
-        """Yield (hidden state, router aux loss) after every layer (B,S,d),
-        train-path semantics: causal attention over positions 0..S-1,
-        cross-attention over ``enc_out`` where given."""
+    def _train_trunk(self, tokens, enc_out=None, prefix=None):
+        """Yield (hidden state, router aux loss) after every layer, train-path
+        semantics: causal attention over positions 0..S-1, cross-attention
+        over ``enc_out`` where given. A VLM's ``prefix`` embeddings (B,P,d)
+        go before the embedded tokens (``embed_scale`` scales the tokens
+        only), and the positions run over all P + S rows."""
         cfg = self.cfg
         S = tokens.shape[1]
         h = self._embed(tokens, torch.arange(S, device=tokens.device)
                         .expand(tokens.shape))
+        if prefix is not None:
+            h = torch.cat([prefix.to(h.dtype), h], dim=1)
         remat = cfg.remat and torch.is_grad_enabled()
         for li, kind in enumerate(cfg.layer_kinds):
             w = _weights(self.layers[li])
@@ -311,12 +314,13 @@ class Model(nn.Module):
             yield h, aux
 
     def _encoder_out(self, batch: dict):
-        """The encoder's output for ``batch["enc_embeds"]``, if given;
-        other frontend inputs (prefix embeds) are refused."""
-        extra = set(batch) - {"tokens", "labels", "enc_embeds"}
+        """The encoder's output for ``batch["enc_embeds"]``, if given; keys
+        the reference does not know are refused."""
+        extra = set(batch) - {"tokens", "labels", "enc_embeds",
+                              "prefix_embeds"}
         if extra:
             raise NotImplementedError(
-                f"batch keys {sorted(extra)} (prefix embeds) are not ported")
+                f"batch keys {sorted(extra)} are not known")
         if "enc_embeds" in batch:
             return self.encode(batch["enc_embeds"])
         return None
@@ -324,9 +328,12 @@ class Model(nn.Module):
     def forward_train(self, batch: dict):
         """batch: {"tokens": (B,S), "labels": (B,S)} int (labels -1 where no
         loss is taken), and for an encoder-decoder optionally
-        ``"enc_embeds"`` (B,T,d), run through the encoder first.
+        ``"enc_embeds"`` (B,T,d), run through the encoder first; for a VLM
+        optionally ``"prefix_embeds"`` (B,P,d), prepended to the embedded
+        tokens at positions 0..P-1 with labels -1 (as the reference's
+        vision prefix).
 
-        Returns (loss, {"aux_loss", "tap" (B,S,d), "n_tok"}): the mean
+        Returns (loss, {"aux_loss", "tap" (B,P+S,d), "n_tok"}): the mean
         next-token cross-entropy over labels >= 0 plus
         ``router_aux_weight`` times the summed MoE router aux losses
         (``aux_loss``; 0 without MoE), the tap layer's hidden state and
@@ -335,16 +342,20 @@ class Model(nn.Module):
         (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
         """
         enc_out = self._encoder_out(batch)
+        prefix = batch.get("prefix_embeds")
+        labels = batch["labels"]
+        if prefix is not None:
+            labels = torch.cat([labels.new_full(prefix.shape[:2], -1),
+                                labels], dim=1)
         tap = h = None
         aux_total = torch.zeros((), device=batch["tokens"].device)
         for li, (h, aux) in enumerate(self._train_trunk(batch["tokens"],
-                                                        enc_out)):
+                                                        enc_out, prefix)):
             aux_total = aux_total + aux
             if li == self.tap_layer:
                 tap = h
         h = _final_norm(self.cfg, self, h)
-        loss, n_tok = _chunked_ce(self.cfg, self._unembed_table(), h,
-                                  batch["labels"])
+        loss, n_tok = _chunked_ce(self.cfg, self._unembed_table(), h, labels)
         aux = {"aux_loss": aux_total, "tap": tap, "n_tok": n_tok}
         return loss + self.cfg.router_aux_weight * aux_total, aux
 
@@ -356,7 +367,8 @@ class Model(nn.Module):
     def forward_all_taps(self, batch: dict):
         """Profiling pass (paper Section 3.1: embeddings of every layer):
         the hidden state after every layer, (num_layers, B, S, d), with
-        train-path semantics and no loss."""
+        train-path semantics and no loss. As in the reference, a
+        ``prefix_embeds`` entry is not read here."""
         enc_out = self._encoder_out(batch)
         return torch.stack([h for h, _ in self._train_trunk(batch["tokens"],
                                                             enc_out)])
@@ -373,14 +385,12 @@ class Model(nn.Module):
         ceil(max_len/page_size) pages) behind a (batch, pages_per_seq)
         block table. Windowed layers keep their ring slots under either.
         Cross-attention layers hold zeroed ``ck``/``cv`` of ``encoder_seq``
-        keys (contiguous layout only), as the reference's do.
+        keys per slot under either layout, as the reference's do. Under
+        ``cfg.kv_quant`` the slot caches are int8 with their scales; the
+        paged layout refuses it, as the reference's does.
         """
         if kv_layout not in ("contig", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        if kv_layout == "paged" and self.cfg.cross_attention:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the paged layout of a cross-attention "
-                "model is not ported")
         cache: dict = {"lengths": torch.zeros(batch, dtype=torch.int32,
                                               device=self.device)}
         num_pages = 0
@@ -419,26 +429,41 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill_chunk(self, cache: dict, tokens, valid=None,
-                      enc_embeds=None):
+                      prefix_embeds=None, enc_embeds=None):
         """Process a chunk of prompt tokens for every active row.
 
         tokens: (B,C) int; valid: (B,C) bool (contiguous prefixes) or None;
-        enc_embeds: (B,T,d) frontend embeddings of an encoder-decoder, run
-        through the encoder into the cross caches first (``encode``, then
-        ``build_cross_cache``). Returns (next_logits (B,V) f32, cache,
-        tap_sum (B,d) f32, n_new (B,) int32).
+        prefix_embeds: (B,P,d) a VLM's prefix embeddings, placed at
+        positions ``lengths + 0..P-1`` before the chunk, whose valid tokens
+        move up by P (every row takes all P; the engine passes none, as the
+        reference's does); enc_embeds: (B,T,d) frontend embeddings of an
+        encoder-decoder, run through the encoder into the cross caches
+        first (``encode``, then ``build_cross_cache``). Returns (next_logits
+        (B,V) f32, cache, tap_sum (B,d) f32, n_new (B,) int32), n_new
+        counting the prefix.
         """
         cfg = self.cfg
         B, C = tokens.shape
+        dev = tokens.device
         if valid is None:
-            valid = torch.ones((B, C), dtype=torch.bool, device=tokens.device)
+            valid = torch.ones((B, C), dtype=torch.bool, device=dev)
         offsets = cache["lengths"]
         if enc_embeds is not None:
             cache = self.build_cross_cache(cache, self.encode(enc_embeds))
         q_pos = torch.where(
             valid, offsets[:, None] + torch.arange(C, dtype=torch.int32,
-                                                   device=tokens.device), -1)
-        h, tap = self._trunk(cache, self._embed(tokens, q_pos), q_pos)
+                                                   device=dev), -1)
+        h = self._embed(tokens, q_pos)
+        if prefix_embeds is not None:
+            P = prefix_embeds.shape[1]
+            ppos = offsets[:, None] + torch.arange(P, dtype=torch.int32,
+                                                   device=dev)
+            h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+            q_pos = torch.cat([ppos, torch.where(valid, q_pos + P, -1)],
+                              dim=1)
+            valid = torch.cat([torch.ones((B, P), dtype=torch.bool,
+                                          device=dev), valid], dim=1)
+        h, tap = self._trunk(cache, h, q_pos)
         n_new = valid.sum(dim=1, dtype=torch.int32)
         cache["lengths"] = offsets + n_new
 

@@ -269,8 +269,9 @@ def test_paged_pool_export_import_and_cow_in_place():
 
 def test_real_mode_needs_the_paged_layout_and_the_model_device():
     """Real mode now runs on either layout (the contiguous one is the
-    default); the model must live on the engine's device, and a model of
-    an unported feature (paligemma's vision prefix) cannot be built."""
+    default); the model must live on the engine's device. paligemma's
+    model builds (its vision prefix is ported), and its engine, like the
+    reference's, serves text only under either layout."""
     _, _, _, pcfg, tm = models()
     eng = port_engine.Engine(pcfg, port_engine.EngineConfig(mode="real"),
                              model=tm, device="cpu")
@@ -279,8 +280,11 @@ def test_real_mode_needs_the_paged_layout_and_the_model_device():
     with pytest.raises(ValueError):
         port_engine.Engine(pcfg, port_engine.EngineConfig(
             mode="real", kv_layout="paged"), model=tm, device="cuda")
-    with pytest.raises(NotImplementedError):
-        Model(port_smoke_config("paligemma-3b"), device="cpu")
+    vlm = Model(port_smoke_config("paligemma-3b"), device="cpu")
+    for layout in ("contig", "paged"):
+        eng = port_engine.Engine(vlm.cfg, port_engine.EngineConfig(
+            mode="real", kv_layout=layout), model=vlm, device="cpu")
+        assert eng.pool.cache["lengths"].shape[0] > 0
 
 
 @pytest.mark.parametrize("kv_layout", ["contig", "paged"])

@@ -596,6 +596,74 @@ def test_cuda_decode_attention_matches_plain(H, KH, hd, M, win, dtype):
 
 
 @pytest.mark.cuda
+def test_cuda_decode_attention_takes_a_layer_of_a_stacked_cache():
+    """On a card: the decode step of a model whose stacked slot cache
+    holds 2 rows of 65 slots (64 + the sink). Layer 1's ``kpos`` then
+    starts 520 bytes into the stack, 8 bytes past a 16-byte boundary;
+    the kernel reads ``kpos`` and ``q_pos`` one int at a time, so it takes
+    them (the wrapper once refused any ``kpos`` off a 16-byte boundary)
+    and matches the CPU's logits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.config import get_smoke_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_smoke_config("granite-3-8b"),
+                              dtype="float32", num_layers=3,
+                              layer_kinds=("attn",) * 3)  # run_1: 2 layers
+    gpu = Model(cfg, device="cuda").init(seed=1)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (2, 9)).astype(np.int32))
+    out = []
+    for m in (gpu, cpu):
+        cache = m.init_cache(2, 64)
+        assert cache["run_1"][0]["kpos"][1].data_ptr() % 16 == 8
+        _, cache, _, _ = m.prefill_chunk(cache, tokens.to(m.device))
+        logits, *_ = m.decode_step(cache, tokens[:, :1].to(m.device))
+        out.append(logits.cpu())
+    assert float((out[0] - out[1]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KH,hd,M,window,cap", [
+    (4, 40, 40, 128, 449, 0, 0.0),      # qwen1.5-32b
+    (4, 16, 8, 256, 256, 256, 50.0),    # a gemma2 ring
+    (4, 4, 1, 256, 96, 64, 0.0),        # gemma3: one KV head
+    (4, 6, 6, 64, 100, 0, 0.0),         # whisper
+    (3, 4, 4, 32, 40, 0, 0.0),          # head_dim 32
+])
+def test_cuda_int8_decode_attention_matches_plain(B, H, KH, hd, M, window,
+                                                  cap, qdtype):
+    """On a card: the kernel over an int8 cache (K/V quantised by the
+    model's ``_quantize``, row 1 inactive) against its plain version with
+    scales (1e-5 with float32 q; one bf16 rounding with bf16 q)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import decode_attention as kern
+    from repro_torch.models.attention import _quantize
+    q, k, v, kpos, q_pos = torch_inputs(
+        slot_fixture(M + hd, B, H, KH, hd, M, window, (1,)), "float32")
+    (k, ks), (v, vs) = _quantize(k), _quantize(2 * v)
+    q, k, v, ks, vs, kpos, q_pos = [t.cuda() for t in (q, k, v, ks, vs, kpos,
+                                                      q_pos)]
+    q = q.to(getattr(torch, qdtype))
+    got = kern.decode_attention(q, k, v, kpos, q_pos, window=window,
+                                softcap=cap, k_scale=ks, v_scale=vs)
+    want = tref.decode_attention_ref(q, k, v, kpos, q_pos, window=window,
+                                     softcap=cap, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    if qdtype == "float32":
+        assert float(diff.max()) <= 1e-5
+    else:
+        assert bool((diff <= 2 ** -7 * want.float().abs() + 1e-4).all())
+    assert float(got[1].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,d,hid,k,tap_dtype,fallback", [
     (16, 3584, 512, 10, "bfloat16", False),
     (1, 3584, 512, 10, "float32", True),

@@ -263,21 +263,30 @@ def test_init_is_seeded_with_the_reference_distributions():
 
 @pytest.mark.parametrize("arch", ARCH_IDS + ("trail-llama",))
 def test_only_attention_stacks_are_ported(arch):
-    """Global and sliding-window attention, MoE, Mamba-2 and hybrid
-    stacks and the encoder-decoder construct (the gemma, olmoe, arctic,
-    mamba2, hymba and whisper configs among them, learned positions too);
-    every other feature (prefix embeds, ``kv_quant``) raises."""
+    """Every config of the pool constructs now: global and sliding-window
+    attention, MoE, Mamba-2 and hybrid stacks, the encoder-decoder and the
+    VLM (paligemma's prefix), learned positions too; and with
+    ``kv_quant`` on, each smoke config's slot caches are int8 with
+    float32 scales of the reference's shapes."""
     cfg = port_smoke_config(arch)
-    supported = (set(cfg.layer_kinds) <= {"attn", "local", "ssm", "hybrid",
-                                          "moe"}
-                 and not cfg.kv_quant and not cfg.num_prefix_tokens)
-    if supported:
-        Model(cfg, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError):
-            Model(cfg, device="cpu")
-    assert supported or not arch.startswith(("gemma", "mamba2", "hymba",
-                                             "olmoe", "arctic", "whisper"))
+    assert set(cfg.layer_kinds) <= {"attn", "local", "ssm", "hybrid", "moe"}
+    Model(cfg, device="cpu")
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    cache = Model(qcfg, device="cpu").init_cache(2, 24)
+    jcache = JaxModel(dataclasses.replace(get_smoke_config(arch),
+                                          kv_quant=True)).init_cache(2, 24)
+    for key in cache:
+        if not key.startswith("run_"):
+            continue
+        for sub, jsub in zip(cache[key], jcache[key]):
+            assert set(sub) == set(jsub)
+            if "k" in sub:
+                assert sub["k"].dtype == torch.int8
+                assert sub["k_scale"].dtype == torch.float32
+                for leaf in ("k", "k_scale", "v_scale"):  # + the sink slot
+                    want = list(jsub[leaf].shape)
+                    want[2] += 1
+                    assert list(sub[leaf].shape) == want, leaf
 
 
 def test_init_cache_defaults_to_the_contiguous_layout():

@@ -173,12 +173,30 @@ def test_forward_train_gradients(arch):
 
 
 def test_forward_train_rejects_frontend_embeds():
-    tm = pair("trail-llama")[3]
+    """Frontend embeddings the reference knows are taken: trail-llama with
+    ``prefix_embeds`` (4 rows, labels -1 there) gives the reference's
+    loss, label count and tap. A batch key the reference does not know is
+    still refused."""
+    cfg, jm, params, tm, _ = pair("trail-llama")
     tokens, labels = one_batch(tm.cfg)
+    prefix = np.random.default_rng(2).standard_normal(
+        (tokens.shape[0], 4, cfg.d_model)).astype(np.float32)
+    jloss, jaux = jax.jit(jm.forward_train)(params, {
+        "tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels),
+        "prefix_embeds": jnp.asarray(prefix)})
+    with torch.no_grad():
+        tloss, taux = tm.forward_train({
+            "tokens": torch.from_numpy(tokens),
+            "labels": torch.from_numpy(labels),
+            "prefix_embeds": torch.from_numpy(prefix)})
+    assert abs(float(jloss) - float(tloss)) <= 2e-5 * float(jloss)
+    assert float(jaux["n_tok"]) == float(taux["n_tok"]) > 0
+    assert tuple(taux["tap"].shape) == tuple(jaux["tap"].shape)
+    assert err(jaux["tap"], taux["tap"]) <= 2e-5 * scale_of(jaux["tap"])
     with pytest.raises(NotImplementedError):
         tm.forward_train({"tokens": torch.from_numpy(tokens),
                           "labels": torch.from_numpy(labels),
-                          "prefix_embeds": torch.zeros(2, 4, 128)})
+                          "image_embeds": torch.zeros(2, 4, 128)})
 
 
 @pytest.mark.parametrize("arch", ARCHS)

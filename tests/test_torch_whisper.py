@@ -236,10 +236,9 @@ def test_forward_train_with_enc_embeds():
     assert all(float(x.abs().max()) > 0 for x in enc_grads)
 
 
-def test_prefill_with_enc_embeds_then_decode():
-    """``prefill_chunk(enc_embeds=...)`` (encoder, cross caches, the
-    decoder over a padded chunk), a decode step and a megastep with an
-    inactive row: tokens equal, logits and probe outputs within 1e-4."""
+def _prefill_then_decode(kv_layout):
+    """``prefill_chunk(enc_embeds=...)`` and decode under ``kv_layout``
+    (paged: scrambled block tables), held against the reference."""
     cfg, jm, params, tm, _ = pair()
     rng = np.random.default_rng(7)
     B = 3
@@ -247,7 +246,12 @@ def test_prefill_with_enc_embeds_then_decode():
     valid = np.ones((B, 8), bool)
     valid[1, 5:] = False
     enc = frames(cfg, B, seed=8)
-    jc, tc = jm.init_cache(B, 32), tm.init_cache(B, 32)
+    jc = jm.init_cache(B, 32, kv_layout=kv_layout, page_size=8)
+    tc = tm.init_cache(B, 32, kv_layout=kv_layout, page_size=8)
+    if kv_layout == "paged":
+        bt = (rng.permutation(B * 4) + 1).astype(np.int32).reshape(B, 4)
+        jc["block_table"] = jnp.asarray(bt)
+        tc["block_table"].copy_(torch.from_numpy(bt))
     jl, jc, jts, jn = jax.jit(jm.prefill_chunk)(
         params, jc, jnp.asarray(tokens), valid=jnp.asarray(valid),
         enc_embeds=jnp.asarray(enc))
@@ -274,22 +278,39 @@ def test_prefill_with_enc_embeds_then_decode():
     assert np.array_equal(np.asarray(je), te.numpy())
     assert err(jp, tp) < TOL_F32
     assert np.array_equal(np.asarray(jc["lengths"]), tc["lengths"].numpy())
+    return tc
 
 
-def test_real_mode_engine_matches_jax():
-    """The contiguous real-mode engine: neither engine passes frame
-    embeddings, so both decoders attend over the zeroed cross caches of
-    ``init_cache``; every request's tokens equal, and the same
-    preemptions, recomputed and prefilled tokens and steps."""
+def test_prefill_with_enc_embeds_then_decode():
+    """``prefill_chunk(enc_embeds=...)`` (encoder, cross caches, the
+    decoder over a padded chunk), a decode step and a megastep with an
+    inactive row: tokens equal, logits and probe outputs within 1e-4."""
+    _prefill_then_decode("contig")
+
+
+def test_paged_prefill_with_enc_embeds_then_decode():
+    """The same under the paged layout: self-attention K/V in pages
+    (through the paged kernels' plain versions), the cross caches per
+    slot beside them, as in the reference."""
+    tc = _prefill_then_decode("paged")
+    sub = tc["run_0"][0]
+    assert {"pk", "pv", "pkpos", "ck", "cv"} <= set(sub)
+    assert float(sub["ck"].abs().max()) > 0
+
+
+def _engines(kv_layout):
+    """The JAX and the port real-mode engine on whisper-smoke, and the
+    same 8 requests for each."""
     cfg, jm, params, tm, _ = pair()
     wl = dict(n_requests=8, request_rate=3000.0, seed=2, prompt_mean=10.0,
               out_median=12.0, max_out=24, vocab=cfg.vocab_size)
     jreqs = jax_workload.generate(jax_workload.WorkloadConfig(**wl))
     preqs = port_workload.generate(port_workload.WorkloadConfig(**wl))
+    budget = (jax_kv.paged_bytes_for_context(cfg, 24, 8)
+              if kv_layout == "paged" else jax_kv.bytes_for_context(cfg, 24))
     kn = dict(policy="trail", max_batch=2, c_limit=1.0, mode="real",
-              kv_layout="contig", probe_interval=4, max_len=48,
-              prefill_chunk=16,
-              mem_budget=3 * jax_kv.bytes_for_context(cfg, 24))
+              kv_layout=kv_layout, probe_interval=4, max_len=48,
+              page_size=8, prefill_chunk=16, mem_budget=3 * budget)
     jeng = jax_engine.Engine(
         cfg, jax_engine.EngineConfig(**kn),
         predictor=jax_predictors.ProbePredictor(
@@ -301,6 +322,25 @@ def test_real_mode_engine_matches_jax():
         predictor=port_predictors.ProbePredictor(
             tm.cfg.probe, probe_params=tm.probe, embed_table=tm.embed),
         model=tm, device="cpu")
+    return jeng, jreqs, peng, preqs
+
+
+def test_real_mode_engine_matches_jax():
+    """The contiguous real-mode engine: neither engine passes frame
+    embeddings, so both decoders attend over the zeroed cross caches of
+    ``init_cache``; every request's tokens equal, and the same
+    preemptions, recomputed and prefilled tokens and steps."""
+    _engine_parity("contig")
+
+
+def test_paged_real_mode_engine_matches_jax():
+    """The same under the paged layout (pages of 8, no page retention in
+    either package)."""
+    _engine_parity("paged")
+
+
+def _engine_parity(kv_layout):
+    jeng, jreqs, peng, preqs = _engines(kv_layout)
     js, ps = jeng.run(jreqs), peng.run(preqs)
     assert [r.generated for r in preqs] == [r.generated for r in jreqs]
     assert all(len(r.generated) == r.true_out_len for r in preqs)
@@ -315,16 +355,19 @@ def test_real_mode_engine_matches_jax():
 
 
 def test_paged_layout_and_page_retention_are_refused():
-    """Cross caches are per slot: no page retention (as the reference
-    says), and the paged layout of a cross-attention model raises."""
-    cfg, _, _, tm, _ = pair()
+    """Cross caches are per slot, so neither package retains pages across
+    a preemption: the paged engine's pool keeps none. The paged layout
+    itself is served, as in the reference: its cache holds the page pool
+    and the per-slot cross caches, each leaf the reference's shape."""
+    cfg, jm, _, tm, _ = pair()
     assert not port_kv.supports_page_retention(tm.cfg)
     assert not jax_kv.supports_page_retention(cfg)
-    with pytest.raises(NotImplementedError):
-        tm.init_cache(2, 32, kv_layout="paged")
-    with pytest.raises(NotImplementedError):
-        port_engine.Engine(tm.cfg, port_engine.EngineConfig(
-            mode="real", kv_layout="paged"), model=tm, device="cpu")
+    _, _, peng, _ = _engines("paged")
+    assert type(peng.pool) is port_kv.PagedSlotPool and not peng.pool.retain
+    jc = jm.init_cache(2, 32, kv_layout="paged", page_size=8)
+    tc = tm.init_cache(2, 32, kv_layout="paged", page_size=8)
+    for key, jsub in jc["run_0"][0].items():
+        assert tuple(tc["run_0"][0][key].shape) == jsub.shape, key
 
 
 def test_npz_round_trip_with_encoder_and_cross_leaves(tmp_path):
