@@ -54,7 +54,9 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    (the tap read element by element), hid 48 and 50 (4-byte copies in
    place of TMA), k 1 and 32, d 20000 (three slices a CTA) and hid 8192
    (256 column blocks on the 132 clusters of one CTA the card holds at
-   once, two blocks a cluster), each with a row
+   once, two blocks a cluster), at 128 rows (``decode_32k``'s batch) at
+   the widths of ``gemma3-1b``, ``hymba-1.5b``, ``mamba2-370m`` and
+   ``whisper-tiny``, each with a row
    whose posterior sums to 0 (the prior fallback; not with one bin), two
    calls on the same inputs bit-equal and calls in flight on two streams
    equal to one call; ``ssd_scan`` at
@@ -235,7 +237,25 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     128; 68.5 GiB of weights): the 12 requests served contiguous with 16
     rows, every decode step through the int8 ``decode_attention``, peak
     memory and the cache's int8 and bf16 bytes logged, one decode
-    megastep and one prefill chunk profiled.
+    megastep and one prefill chunk profiled;
+23. ``phase_dryrun``: the dry run for one H100
+    (``repro_torch.launch.dryrun``, on meta tensors, in a process a CPU)
+    over every architecture and input shape, a line each (fit,
+    predicted peak, bounding term; no case may fail); then every decode
+    case whose predicted peak fits in 90% of the card's memory runs its
+    serve step on the card at the shape's B and S with a full cache
+    (random bf16 K/V, every position written): one warm-up and 3 timed
+    steps, the measured peak against the predicted (the ratio logged,
+    not gated), the step against the H100 byte bound, the launches
+    (``decode_attention`` once a step per attention layer, ``probe_update``
+    once a step), finite logits; in one more step every kind of
+    ``decode_attention`` call (each global and ring layer length, at
+    the case's B) and the ``probe_update`` call are recorded and held
+    against their plain versions on the same inputs; and one global
+    layer is timed beside its plain version, SDPA and its bound over the
+    full 524289-slot row of ``gemma3-1b`` at ``long_500k`` and the
+    32769-slot rows of ``whisper-tiny`` at ``decode_32k``. A case that
+    fits by the dry run and runs out of memory fails.
 
 Every kernel launch count is set to 0 just before a path is driven and
 read just after it; launches made to compare a kernel with its plain
@@ -1048,6 +1068,10 @@ PROBE_CASES = [  # label, B, d, hid, k, tap dtype, fallback
     ("k 32", 16, 3584, 512, 32, "float32", True),
     ("d 20000", 17, 20000, 64, 10, "bfloat16", True),  # 3 slices a CTA
     ("hid 8192", 6, 1600, 8192, 10, "float32", True),  # 256 blocks, 132 CTAs
+    ("gemma3-1b", 128, 1152, 512, 10, "bfloat16", True),   # decode_32k rows
+    ("hymba-1.5b", 128, 1600, 512, 10, "bfloat16", True),
+    ("mamba2-370m", 128, 1024, 512, 10, "bfloat16", True),
+    ("whisper-tiny", 128, 384, 512, 10, "float32", True),
 ]
 
 
@@ -3358,6 +3382,251 @@ def phase_prefix(torch):
     return served
 
 
+DRYRUN_FIT = 0.9       # share of the card's memory a decode case must fit
+DRYRUN_STEPS = 3       # timed serve steps per card case, after one warm-up
+DRYRUN_TIMED = (("gemma3-1b", "long_500k"),    # cases whose global layer is
+                ("whisper-tiny", "decode_32k"))  # timed beside SDPA
+DRYRUN_KERNELS = ("decode_attention", "probe_update")
+
+
+def _fill_cache(torch, cache, S, seed):
+    """A contiguous cache as after S - 1 tokens of every row: each slot
+    layer's K/V (and cross K/V) random bf16, its ``kpos`` the positions
+    the row holds (a global row 0..S-2 at slot p, a ring its last M
+    positions at slot p % M; the sink slot -1), ``lengths`` S - 1. SSM
+    states stay zero, as after a reset: their size is the same either
+    way."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_tok = S - 1
+    for key, subs in cache.items():
+        if not key.startswith("run_"):
+            continue
+        for sub in subs:
+            for name, leaf in sub.items():
+                if name == "kpos":
+                    M = leaf.shape[2] - 1
+                    pos = torch.arange(max(0, n_tok - M), n_tok,
+                                       dtype=torch.int32, device="cuda")
+                    leaf.fill_(-1)
+                    leaf[:, :, pos % M] = pos
+                elif name in ("k", "v", "ck", "cv"):
+                    leaf.normal_(generator=g)
+    cache["lengths"].fill_(n_tok)
+
+
+@contextlib.contextmanager
+def recorded_calls(ops, names):
+    """Within the block each call of ``ops.<name>`` for ``names`` runs as
+    before, and the first call of each kind (the name, the shapes of its
+    tensors, its other options: a global and a ring layer are two kinds)
+    is kept with its result. Yields the dict kind -> (args, kwargs,
+    result)."""
+    calls = {}
+    saved = {n: getattr(ops, n) for n in names}
+
+    def kind(x):
+        return tuple(x.shape) if hasattr(x, "shape") else x
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            key = (name, tuple(map(kind, args)),
+                   tuple((k, kind(v)) for k, v in sorted(kwargs.items())))
+            calls.setdefault(key, (args, kwargs, out))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, name, recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def check_recorded(ref, calls, label):
+    """Each recorded kernel call (``recorded_calls``) against its plain
+    version on the same inputs: ``decode_attention`` by ``compare`` (one
+    rounding of the output), ``probe_update`` within ``PROBE_TOL``."""
+    for (name, _, _), (args, kwargs, got) in calls.items():
+        if name == "decode_attention":
+            want = ref.decode_attention_ref(*args, **kwargs)
+            B, M = args[1].shape[:2]
+            window = kwargs["window"]
+            compare(name, f"{label} B={B}, {M} slots"
+                    + (f", window {window}" if window else "")
+                    + f", max|plain| {float(want.abs().max()):.2e}", got,
+                    want, str(got.dtype).removeprefix("torch."))
+        else:
+            want = ref.probe_update_ref(*args, **kwargs)
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            B, d = args[0].shape
+            log(f"[check] {name:30s} {label} B={B} d={d}: max|kernel-plain| "
+                f"q_new {errs[0]:.3e}, p {errs[1]:.3e} (tol {PROBE_TOL:.0e})")
+            if max(errs) > PROBE_TOL:
+                fail(f"{name} disagrees with its plain version ({label}, "
+                     f"B={B}): {errs}")
+        del want
+
+
+def time_global_layer(torch, cfg, calls, label, S):
+    """One global layer's recorded ``decode_attention`` call over its full
+    S + 1-slot rows, timed with CUDA events: kernel, plain version,
+    ``scaled_dot_product_attention`` with the same mask
+    (``slot_library_call``), kernel again, beside its bound."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+    rows = [c for (name, _, _), c in calls.items()
+            if name == "decode_attention" and c[0][1].shape[1] == S + 1]
+    if not rows:
+        fail(f"{label}: no global layer of {S + 1} slots was recorded")
+    args, kwargs, _ = rows[0]
+    case = dict(zip(SLOT_ARGS, args))
+    B = args[0].shape[0]
+    b_ms, by = slot_bound(case, kwargs["window"], "bfloat16")
+    ms = time_ms(torch, lambda: dec.decode_attention(*args, **kwargs))
+    plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(
+        *args, **kwargs), iters=3, warmup=1)
+    lib = slot_library_call(case, kwargs["window"])
+    library_ms = time_ms(torch, lib, iters=10)
+    del lib
+    ms2 = time_ms(torch, lambda: dec.decode_attention(*args, **kwargs))
+    split = decode_split("decode_attention", "bfloat16", B=B,
+                         H=cfg.num_heads, KH=cfg.num_kv_heads,
+                         hd=cfg.head_dim, M=S + 1)
+    log(f"[time] decode_attention {label}, {S + 1} slots, B={B}: kernel "
+        f"{ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms (kernel/library "
+        f"{min(ms, ms2) / library_ms:.2f}), bound {b_ms:.4f} ms ({by}), "
+        f"{100 * b_ms / min(ms, ms2):.1f}% of it; split {split} CTAs a "
+        f"(row, KV head), {B * cfg.num_kv_heads} rows")
+
+
+def dryrun_card_case(torch, rep, seed=0):
+    """One decode case the dry run says fits, on the card: the model with
+    random weights, its cache full (``_fill_cache``), ``make_serve_step``
+    once to warm up and ``DRYRUN_STEPS`` timed steps (``lengths`` reset to
+    S - 1 before each, so every step reads its whole context); the peak
+    against the prediction, the step against the H100 ``memory_s``
+    bound, the launches; then one more step whose ``DRYRUN_KERNELS``
+    calls are recorded, each kind held against its plain version on the
+    same inputs (every layer kind of ``decode_attention`` at the case's B
+    and row length, and ``probe_update`` at its B), and one
+    ``decode_step`` for the logits. For the ``DRYRUN_TIMED`` cases one
+    global layer is timed (``time_global_layer``). Returns a summary."""
+    from repro_torch.config import INPUT_SHAPES, KIND_SSM, get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.model import Model
+    arch, shape = rep["arch"], rep["shape"]
+    cfg = get_config(arch)
+    B, S = INPUT_SHAPES[shape].global_batch, INPUT_SHAPES[shape].seq_len
+    k = cfg.probe.num_bins
+    try:
+        model = Model(cfg, device="cuda").init(seed=seed)
+        cache = model.init_cache(B, S)
+        _fill_cache(torch, cache, S, seed)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        tokens = torch.randint(1, cfg.vocab_size, (B, 1), generator=g,
+                               device="cuda", dtype=torch.int32)
+        q_prev = torch.full((B, k), 1.0 / k, device="cuda")
+        step = make_serve_step(model)
+
+        def one_step():
+            cache["lengths"].fill_(S - 1)
+            return step(cache, tokens, q_prev)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        times = []
+        for _ in range(1 + DRYRUN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, q_new, pred = one_step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(ops.launches)
+        with recorded_calls(ops, DRYRUN_KERNELS) as calls:
+            one_step()
+        cache["lengths"].fill_(S - 1)
+        logits = model.decode_step(cache, tokens)[0]
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        fail(f"dry run: {arch} {shape} fits by the dry run but ran out of "
+             f"memory on the card: {e}")
+    if not (torch.isfinite(logits).all() and torch.isfinite(q_new).all()
+            and torch.isfinite(pred).all()):
+        fail(f"dry run: {arch} {shape}: non-finite logits or posterior")
+    n_attn = sum(kind != KIND_SSM for kind in cfg.layer_kinds)
+    steps = 1 + DRYRUN_STEPS
+    if (launches["decode_attention"] != n_attn * steps
+            or launches["probe_update"] != steps):
+        fail(f"dry run: {arch} {shape}: launches {launches} in {steps} "
+             f"serve steps ({n_attn} attention layers)")
+    kinds = sorted((name, c[0][1].shape[1] if name == "decode_attention"
+                    else None) for (name, _, _), c in calls.items())
+    if len({name for name, _ in kinds}) != (1 + (n_attn > 0)):
+        fail(f"dry run: {arch} {shape}: recorded kernel calls {kinds}")
+    predicted = rep["memory"]["peak_per_device_gb"] * 1e9
+    bound = rep["roofline"]["memory_s"] * 1e3
+    ms = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"[dryrun-card] {arch} {shape} B={B} S={S}: peak predicted "
+        f"{predicted / 2**30:.3f} GiB, measured {peak / 2**30:.3f} GiB "
+        f"(ratio {peak / predicted:.3f}); step {ms:.3f} ms (median of "
+        f"{DRYRUN_STEPS}; {', '.join(f'{t:.3f}' for t in times[1:])}; "
+        f"warm-up {times[0]:.1f}) against the H100 memory_s bound "
+        f"{bound:.3f} ms (share {bound / ms:.3f}); launches in {steps} steps: "
+        f"decode_attention {launches['decode_attention']}, probe_update "
+        f"{launches['probe_update']}")
+    check_recorded(ref, calls, f"{arch} {shape}")
+    _profile(torch, arch, f"serve step at {shape}, B={B}", one_step)
+    if (arch, shape) in DRYRUN_TIMED:
+        time_global_layer(torch, cfg, calls, f"{arch} {shape}", S)
+    del model, cache, logits, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=arch, shape=shape, predicted=predicted, peak=peak,
+                ms=ms, bound_ms=bound)
+
+
+def phase_dryrun(torch):
+    """The dry run for one H100 (``repro_torch.launch.dryrun``, in a
+    process a CPU on meta tensors) over every architecture and
+    input shape: a line per case, none may fail. Then every decode case
+    whose predicted peak fits in ``DRYRUN_FIT`` of the card's memory runs
+    on the card (``dryrun_card_case``). Prefill and train cases stay
+    meta-only, as in the reference."""
+    from repro_torch.config import ARCH_IDS, INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    reports = dryrun.run_cases([(a, s) for a in ARCH_IDS
+                                for s in INPUT_SHAPES], "h100")
+    for rep in reports:
+        log(f"[dryrun] {dryrun.summary(rep)}")
+    failed = [f"{r['arch']} {r['shape']}" for r in reports if "error" in r]
+    if failed:
+        fail(f"dry run: {len(failed)} case(s) failed: {failed}")
+    t_meta = time.perf_counter() - t0
+    room = DRYRUN_FIT * torch.cuda.get_device_properties(0).total_memory
+    fits = [r for r in reports if r["mode"] == "decode" and "memory" in r
+            and r["memory"]["peak_per_device_gb"] * 1e9 <= room]
+    log(f"[dryrun] {len(reports)} cases in {t_meta:.1f} s on meta; "
+        f"{len(fits)} decode cases fit {room / 2**30:.2f} GiB: "
+        f"{[(r['arch'], r['shape']) for r in fits]}")
+    if not fits:
+        fail("dry run: no decode case fits the card")
+    run = {(r["arch"], r["shape"]) for r in fits}
+    if not set(DRYRUN_TIMED) <= run:
+        fail(f"dry run: the timed cases {DRYRUN_TIMED} do not all fit")
+    for rep in fits:
+        dryrun_card_case(torch, rep)
+    log(f"[dryrun] phase took {time.perf_counter() - t0:.1f} s "
+        f"({t_meta:.1f} s on meta)")
+
+
 def phase_serve_cli(torch):
     """The serving entry point, ``python -m repro_torch.launch.serve``'s
     ``main``, in-process on the card at full width and depth: each run of
@@ -3608,6 +3877,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     qwen = phase_serve_qwen_int8(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun(torch)
 
     kernels = []
     for kname, label, source, replaces, launches in (

@@ -7,7 +7,8 @@ Each kernel ships three pieces:
   ref.py         — the plain PyTorch version (the semantics contract)
 
 ``ops.py`` dispatches on the tensor's device: a CPU tensor goes to the
-plain version, a CUDA tensor to the kernel (or the call raises).
+plain version, a meta tensor too (shapes alone, nothing allocated: the
+dry run), a CUDA tensor to the kernel (or the call raises).
 ``build.py`` compiles the sources with ``nvcc`` at first use and keeps
 the launch counts.
 

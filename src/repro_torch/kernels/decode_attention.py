@@ -25,6 +25,9 @@ import torch
 from repro_torch.kernels import build
 
 _HEAD_DIMS = (32, 64, 128, 256)
+#: token rows (B * M) the kernel can index: it computes b * M + n in an int
+_MAX_ROWS = 2 ** 31 - 1
+
 _lib = None
 
 
@@ -90,6 +93,9 @@ def decode_attention(q, k, v, kpos, q_pos, *, window: int = 0,
         raise ValueError(f"head_dim {hd} not supported {_HEAD_DIMS}")
     if H % KH or H // KH > 8:
         raise ValueError(f"num_heads {H} must be 1-8 times num_kv_heads {KH}")
+    if B * M > _MAX_ROWS:
+        raise ValueError(f"{B} x {M} token rows: the kernel indexes them "
+                         f"with an int (at most {_MAX_ROWS})")
     out = torch.empty_like(q)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream

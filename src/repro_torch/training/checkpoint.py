@@ -7,7 +7,8 @@ markers so that it comes back as what it was; a bfloat16 leaf is stored
 as its uint16 bit pattern under ``<path>::bf16``. ``save`` writes
 atomically (a temporary file in the same directory, then a rename), so a
 reader never sees half a file. A file written here restores in the
-reference's ``restore``, and one written there loads here.
+reference's ``restore``, and one written there loads here, with
+``load_npz`` or under the reference's name, ``restore``.
 """
 
 from __future__ import annotations
@@ -104,3 +105,7 @@ def load_npz(path) -> dict:
         return {k: fix(v, f"{prefix}{k}/") for k, v in node.items()}
 
     return fix(root)
+
+
+#: the reference's name for ``load_npz``
+restore = load_npz

@@ -351,6 +351,20 @@ def test_checkpoint_restores_in_jax(arch, tmp_path):
         assert torch.equal(v, masters[k])
 
 
+def test_restore_is_load_npz(tmp_path):
+    """The port reads a checkpoint under the reference's name, ``restore``,
+    into the same tree as ``load_npz``: here one the reference wrote."""
+    path = str(tmp_path / "r.npz")
+    jckpt.save(path, {"a": jnp.arange(3, dtype=jnp.bfloat16),
+                      "b": (np.ones((2, 2), np.float32), [np.int32(7)])})
+    got, want = tckpt.restore(path), tckpt.load_npz(path)
+    assert isinstance(got["b"], tuple) and isinstance(got["b"][1], list)
+    assert got["a"].dtype == torch.bfloat16
+    assert torch.equal(got["a"], want["a"])
+    assert torch.equal(got["b"][0], want["b"][0])
+    assert torch.equal(got["b"][1][0], want["b"][1][0])
+
+
 def test_default_opt_config_and_train_step_for():
     for arch in ("trail-llama", "arctic-480b"):
         from repro.config import get_config
