@@ -8,7 +8,9 @@ run, ``launch.dryrun``, runs a step at full size). A CUDA tensor goes to
 the hand-written kernel, which launches or raises: nothing here falls
 back from a kernel to its plain version, and nothing computes on meta.
 The kernels' launch counts are ``launches`` (reset with
-``reset_launches``).
+``reset_launches``). Each kernel call opens the detail span
+``kernel.<key of launches>`` (``repro_torch.metrics.spans``) around its
+binding: the checks, the arguments and the launch, on the host.
 
 ``META_KERNEL`` lets a caller stand in for a kernel call on meta: set to
 ``fn(plain, *args, **kwargs)``, each such call returns ``fn``'s result.
@@ -21,12 +23,15 @@ from __future__ import annotations
 
 from contextvars import ContextVar
 
+import torch
+
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import probe as _probe
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.metrics.spans import detail
 
 launches = build.launches
 reset_launches = build.reset_launches
@@ -57,9 +62,11 @@ def decode_attention(q, k, v, kpos, q_pos, *, window=0, softcap=0.0,
         return _plain(ref.decode_attention_ref, q, k, v, kpos, q_pos,
                       window=window, softcap=softcap, k_scale=k_scale,
                       v_scale=v_scale)
-    return _dec.decode_attention(q, k, v, kpos, q_pos, window=window,
-                                 softcap=softcap, k_scale=k_scale,
-                                 v_scale=v_scale)
+    with detail("kernel.decode_attention_int8" if k.dtype == torch.int8
+                else "kernel.decode_attention"):
+        return _dec.decode_attention(q, k, v, kpos, q_pos, window=window,
+                                     softcap=softcap, k_scale=k_scale,
+                                     v_scale=v_scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
@@ -69,9 +76,10 @@ def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
         return _plain(ref.paged_decode_attention_ref, q, k_pages, v_pages,
                       kpos_pages, block_table, q_pos, window=window,
                       softcap=softcap)
-    return _paged.paged_decode_attention(
-        q, k_pages, v_pages, kpos_pages, block_table, q_pos, window=window,
-        softcap=softcap)
+    with detail("kernel.paged_decode_attention"):
+        return _paged.paged_decode_attention(
+            q, k_pages, v_pages, kpos_pages, block_table, q_pos,
+            window=window, softcap=softcap)
 
 
 def paged_decode_attention_multi(q, k_pages, v_pages, kpos_pages,
@@ -82,9 +90,10 @@ def paged_decode_attention_multi(q, k_pages, v_pages, kpos_pages,
         return _plain(ref.paged_decode_attention_multi_ref, q, k_pages,
                       v_pages, kpos_pages, block_table, q_pos, window=window,
                       softcap=softcap)
-    return _paged.paged_decode_attention_multi(
-        q, k_pages, v_pages, kpos_pages, block_table, q_pos, window=window,
-        softcap=softcap)
+    with detail("kernel.paged_decode_attention_multi"):
+        return _paged.paged_decode_attention_multi(
+            q, k_pages, v_pages, kpos_pages, block_table, q_pos,
+            window=window, softcap=softcap)
 
 
 def probe_update(tap, w1, b1, w2, b2, q_prev, T):
@@ -92,7 +101,8 @@ def probe_update(tap, w1, b1, w2, b2, q_prev, T):
     step. Returns (q_new, p), both float32."""
     if tap.device.type in _PLAIN_DEVICES:
         return _plain(ref.probe_update_ref, tap, w1, b1, w2, b2, q_prev, T)
-    return _probe.probe_update(tap, w1, b1, w2, b2, q_prev, T)
+    with detail("kernel.probe_update"):
+        return _probe.probe_update(tap, w1, b1, w2, b2, q_prev, T)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -101,8 +111,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     if q.device.type in _PLAIN_DEVICES:
         return _plain(ref.flash_attention_ref, q, k, v, causal=causal,
                       window=window, softcap=softcap)
-    return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                  softcap=softcap)
+    with detail("kernel.flash_attention"):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      softcap=softcap)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk):
@@ -114,4 +125,5 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk):
     if x.device.type in _PLAIN_DEVICES:
         return _plain(ref.ssd_scan_ref, x, dt, A, Bm, Cm, init_state,
                       chunk=chunk)
-    return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state, chunk=chunk)
+    with detail("kernel.ssd_scan"):
+        return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state, chunk=chunk)

@@ -12,9 +12,13 @@ Submodules:
   SLO-attainment curves, and preemption/swap counters.
 * ``emitters``  — shared JSON and markdown-table emitters used by every
   benchmark artifact.
+* ``spans``     — host spans inside the engine, the model and the kernel
+  bindings, on the clock of the events' ``wall`` stamps (off unless
+  switched on; the port's own, with no counterpart in the reference).
 
-A copy of the reference package's ``metrics`` (pure Python and numpy):
-the same event stream rolls up into the same report, byte for byte.
+The rest is a copy of the reference package's ``metrics`` (pure Python
+and numpy): the same event stream rolls up into the same report, byte for
+byte.
 """
 
 from repro_torch.metrics.emitters import report_json, report_markdown

@@ -22,6 +22,13 @@ Event kinds (``Event.kind``):
 * ``prefix_hit``  — prompt tokens served from the KV prefix cache at
   admission (``value`` = tokens).
 
+In real mode the engine also stamps each event with ``wall``, the
+``time.perf_counter_ns()`` reading when it was emitted: the clock of
+`repro_torch.metrics.spans`, so a request's events lie on the timeline of
+the spans of the steps that served it. ``t`` stays the engine's clock.
+Sim mode leaves ``wall`` unset, and an event without it is the
+reference's, in `Event.as_dict` too.
+
 Resilience kinds (the failure/overload layer):
 
 * ``cancel``       — the request was cancelled explicitly
@@ -75,17 +82,24 @@ class Event:
         kind: one of `EVENT_KINDS`.
         value: kind-specific payload (tokens emitted, bytes swapped,
             preemption count); 0.0 where meaningless.
+        wall: ``perf_counter_ns()`` when the event was emitted (real
+            mode), or None.
     """
 
     t: float
     rid: int
     kind: str
     value: float = 0.0
+    wall: int | None = None
 
     def as_dict(self) -> dict:
-        """JSON-friendly form (stable key order for deterministic dumps)."""
-        return {"t": self.t, "rid": self.rid, "kind": self.kind,
-                "value": self.value}
+        """JSON-friendly form (stable key order for deterministic dumps);
+        ``wall`` only where it is set."""
+        d = {"t": self.t, "rid": self.rid, "kind": self.kind,
+             "value": self.value}
+        if self.wall is not None:
+            d["wall"] = self.wall
+        return d
 
 
 class EventLog:
@@ -103,9 +117,10 @@ class EventLog:
     def __len__(self) -> int:
         return len(self.events)
 
-    def emit(self, t: float, rid: int, kind: str, value: float = 0.0):
+    def emit(self, t: float, rid: int, kind: str, value: float = 0.0,
+             wall: int | None = None):
         """Append one event (no validation on the hot path)."""
-        self.events.append(Event(float(t), rid, kind, float(value)))
+        self.events.append(Event(float(t), rid, kind, float(value), wall))
 
     def clear(self):
         """Drop all events (the engine's ``run()`` reset)."""

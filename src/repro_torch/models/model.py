@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import (FAMILY_AUDIO, KIND_ATTN, KIND_HYBRID,
                                 KIND_MOE, KIND_SSM, ModelConfig)
 from repro_torch.core import predictor
+from repro_torch.metrics.spans import detail
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, cdtype, embed_tokens,
@@ -251,10 +252,11 @@ class Model(nn.Module):
     def _embed(self, tokens, positions):
         """Token rows in the compute dtype, plus the learned position rows
         (positions clipped to the table) where the config has no RoPE."""
-        h = embed_tokens(self.cfg, self.embed, tokens)
-        if not self.cfg.use_rope:
-            idx = positions.clamp(0, self.pos_embed.shape[0] - 1).long()
-            h = h + self.pos_embed[idx].to(h.dtype)
+        with detail("model.embed"):
+            h = embed_tokens(self.cfg, self.embed, tokens)
+            if not self.cfg.use_rope:
+                idx = positions.clamp(0, self.pos_embed.shape[0] - 1).long()
+                h = h + self.pos_embed[idx].to(h.dtype)
         return h
 
     def encode(self, enc_embeds):
@@ -467,14 +469,15 @@ class Model(nn.Module):
         n_new = valid.sum(dim=1, dtype=torch.int32)
         cache["lengths"] = offsets + n_new
 
-        # next-token logits from the last valid position of each row
-        last_idx = (n_new - 1).clamp_min(0).long()
-        h_last = h[torch.arange(B, device=h.device), last_idx]
-        h_last = _final_norm(cfg, self, h_last)
-        logits = unembed(cfg, self._unembed_table(), h_last)
+        with detail("model.head"):
+            # next-token logits from the last valid position of each row
+            last_idx = (n_new - 1).clamp_min(0).long()
+            h_last = h[torch.arange(B, device=h.device), last_idx]
+            h_last = _final_norm(cfg, self, h_last)
+            logits = unembed(cfg, self._unembed_table(), h_last)
 
-        # paper: prompt-phase probe input = mean of prompt-token taps
-        tap_sum = (tap.float() * valid[..., None].float()).sum(dim=1)
+            # paper: prompt-phase probe input = mean of prompt-token taps
+            tap_sum = (tap.float() * valid[..., None].float()).sum(dim=1)
         return logits, cache, tap_sum, n_new
 
     def _decode(self, cache: dict, tokens, active):
@@ -493,8 +496,10 @@ class Model(nn.Module):
         h, tap = self._trunk(cache, self._embed(tokens, q_pos), q_pos,
                              decode=True)
         cache["lengths"] = lengths + active.to(torch.int32)
-        hn = _final_norm(cfg, self, h[:, 0])
-        return unembed(cfg, self._unembed_table(), hn), cache, tap[:, 0]
+        with detail("model.head"):
+            hn = _final_norm(cfg, self, h[:, 0])
+            logits = unembed(cfg, self._unembed_table(), hn)
+        return logits, cache, tap[:, 0]
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens, active=None):
@@ -504,7 +509,9 @@ class Model(nn.Module):
         Returns (logits (B,V) f32, cache, tap (B,d), probe_logits (B,k)).
         """
         logits, cache, tap = self._decode(cache, tokens, active)
-        return logits, cache, tap, predictor.apply_probe(self.probe, tap)
+        with detail("model.head"):
+            probe_logits = predictor.apply_probe(self.probe, tap)
+        return logits, cache, tap, probe_logits
 
     @torch.no_grad()
     def decode_multi(self, cache: dict, tokens, active=None, budget=None, *,
@@ -533,15 +540,19 @@ class Model(nn.Module):
         halted = torch.zeros(B, dtype=torch.bool, device=dev)
         toks, probs = [], []
         for _ in range(k):
-            act = active & ~halted & (emitted < budget)
-            logits, cache, _, probe_logits = self.decode_step(cache, tok, act)
-            nxt = logits.argmax(dim=-1).to(torch.int32)
-            if eos_id >= 0:
-                halted = halted | (act & (nxt == eos_id))
-            emitted = emitted + act.to(torch.int32)
-            probs.append(torch.softmax(probe_logits.float(), dim=-1))
-            toks.append(torch.where(act, nxt, -1))
-            tok = torch.where(act, nxt, tok[:, 0])[:, None]
+            with detail("model.sample"):
+                act = active & ~halted & (emitted < budget)
+            with detail("model.decode_step"):
+                logits, cache, _, probe_logits = self.decode_step(cache, tok,
+                                                                  act)
+            with detail("model.sample"):
+                nxt = logits.argmax(dim=-1).to(torch.int32)
+                if eos_id >= 0:
+                    halted = halted | (act & (nxt == eos_id))
+                emitted = emitted + act.to(torch.int32)
+                probs.append(torch.softmax(probe_logits.float(), dim=-1))
+                toks.append(torch.where(act, nxt, -1))
+                tok = torch.where(act, nxt, tok[:, 0])[:, None]
         return torch.stack(toks, 1), cache, torch.stack(probs, 1), emitted
 
 

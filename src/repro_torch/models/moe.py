@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.metrics.spans import detail
 
 
 def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -116,9 +117,14 @@ def combine(ye, slot, keep, sw, order, t: int):
 
 def moe_tokens(cfg: ModelConfig, p, hf: torch.Tensor):
     """Sort-based dispatch over one token shard. hf: (t,d) -> ((t,d), aux)."""
-    top_p, top_i, aux = route(cfg, p.moe_router, hf)
-    xe, slot, keep, sw, order = dispatch(cfg, top_p, top_i, hf)
-    return combine(experts(p, xe), slot, keep, sw, order, hf.shape[0]), aux
+    with detail("moe.route"):
+        top_p, top_i, aux = route(cfg, p.moe_router, hf)
+    with detail("moe.dispatch"):
+        xe, slot, keep, sw, order = dispatch(cfg, top_p, top_i, hf)
+    with detail("moe.experts"):
+        ye = experts(p, xe)
+    with detail("moe.combine"):
+        return combine(ye, slot, keep, sw, order, hf.shape[0]), aux
 
 
 def moe_mlp(cfg: ModelConfig, p, h: torch.Tensor):

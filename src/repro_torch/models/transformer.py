@@ -18,6 +18,7 @@ from torch import nn
 
 from repro_torch.config import (FAMILY_AUDIO, KIND_ATTN, KIND_HYBRID,
                                 KIND_LOCAL, KIND_MOE, KIND_SSM, ModelConfig)
+from repro_torch.metrics.spans import detail
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -306,23 +307,26 @@ def block_cached(cfg: ModelConfig, kind: str, p, h, cache_l, q_pos,
     """
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    hn = norm(cfg, p, "norm1", h)
     if kind == KIND_SSM:
+        hn = norm(cfg, p, "norm1", h)
         return h + _ssm_cached(cfg, p, hn, cache_l, q_pos, decode), cache_l
-    if "pk" in cache_l:
-        a, cache_l = attn.self_attention_paged(cfg, p, hn, cache_l, q_pos,
-                                               block_table)
-    else:
-        a, cache_l = attn.self_attention_cached(
-            cfg, p, hn, cache_l, q_pos, window=_kind_window(cfg, kind))
-    if kind == KIND_HYBRID:
-        a = 0.5 * (a + _ssm_cached(cfg, p, hn, cache_l, q_pos, decode))
-    h = h + a
-    if "ck" in cache_l and hasattr(p, "cross_wq"):
-        h = h + attn.cross_attention(cfg, cross_weights(p),
-                                     norm(cfg, p, "norm_cross", h),
-                                     cache_l["ck"], cache_l["cv"])
-    return h + _mlp_part(cfg, kind, p, h)[0], cache_l
+    with detail("model.attention"):
+        hn = norm(cfg, p, "norm1", h)
+        if "pk" in cache_l:
+            a, cache_l = attn.self_attention_paged(cfg, p, hn, cache_l,
+                                                   q_pos, block_table)
+        else:
+            a, cache_l = attn.self_attention_cached(
+                cfg, p, hn, cache_l, q_pos, window=_kind_window(cfg, kind))
+        if kind == KIND_HYBRID:
+            a = 0.5 * (a + _ssm_cached(cfg, p, hn, cache_l, q_pos, decode))
+        h = h + a
+        if "ck" in cache_l and hasattr(p, "cross_wq"):
+            h = h + attn.cross_attention(cfg, cross_weights(p),
+                                         norm(cfg, p, "norm_cross", h),
+                                         cache_l["ck"], cache_l["cv"])
+    with detail("model.mlp"):
+        return h + _mlp_part(cfg, kind, p, h)[0], cache_l
 
 
 def init_run_cache(cfg: ModelConfig, kind: str, n_layers: int, batch: int,

@@ -16,8 +16,10 @@ One engine iteration =
      (on-device greedy sampling, KV written in place), with the probe
      fused into every step; Bayesian-refine predictions (Section 3.1) at
      each k-token probe boundary;
-  5. advance the clock: real wall time, or the roofline cost model
-     (see costmodel.py).
+  5. advance the clock: the roofline cost model (see costmodel.py) in
+     both modes. Real mode schedules on that clock too, and stamps each
+     event it logs with ``wall``, the host's ``perf_counter_ns``, beside
+     the cost model's ``t``.
 
 Two execution modes:
   * real  — the PyTorch model (``repro_torch.models.model.Model``)
@@ -30,6 +32,9 @@ Two execution modes:
             O(B*k) token ids + probe posteriors (never O(B*vocab) logits).
             The engine clock stays the cost model's (a TPU v5e preset by
             default): its latencies are not times measured on the card.
+            Each logged event also carries ``wall``, and the step's stages
+            open the spans of ``repro_torch.metrics.spans`` (engine.*),
+            on the same host clock, when those are switched on.
   * sim   — no device math; oracle-noise probe statistics; paper-scale
             models under the cost model (Figures 5-7 reproduction). Sim
             stays a per-token loop: probe_interval only throttles
@@ -47,6 +52,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.scheduler import Decision, ReqState, SchedEntry, select_batch
+from repro_torch.metrics.spans import span
 from repro_torch.serving.costmodel import CostModel, HardwareSpec
 from repro_torch.serving.kv_cache import (BlockManager, PagedSlotPool,
                                           SlotPool, bytes_for_context,
@@ -361,6 +367,7 @@ class Engine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.events = event_log
+        self._wall = ecfg.mode == "real"     # events carry host stamps
         if predictor is not None:
             self.predictor = predictor
         elif ecfg.predictor:
@@ -672,6 +679,11 @@ class Engine:
             del self._subs[rid]
         cb(t, kind, value)
 
+    def _emit(self, t: float, rid: int, kind: str, value: float = 0.0):
+        """Log one event, stamped with the host clock in real mode."""
+        self.events.emit(t, rid, kind, value,
+                         time.perf_counter_ns() if self._wall else None)
+
     def _admit_arrivals(self, t: float):
         ecfg = self.ecfg
         gate = ecfg.admission_control and ecfg.shed_watermark > 0.0
@@ -689,8 +701,8 @@ class Engine:
                 self.stats.n_cancelled += 1
                 self.stats.n_shed += 1
                 if self.events is not None:
-                    self.events.emit(req.arrival, req.rid, "arrival")
-                    self.events.emit(max(t, req.arrival), req.rid, "shed")
+                    self._emit(req.arrival, req.rid, "arrival")
+                    self._emit(max(t, req.arrival), req.rid, "shed")
                 if self._subs:
                     self._notify(max(t, req.arrival), req.rid, "shed")
                 continue
@@ -719,7 +731,7 @@ class Engine:
             self._entries[req.rid] = req.entry
             self._p_idx += 1
             if self.events is not None:
-                self.events.emit(req.arrival, req.rid, "arrival")
+                self._emit(req.arrival, req.rid, "arrival")
 
     def step(self) -> StepResult:
         """Execute one engine iteration (one megastep) and return it.
@@ -729,6 +741,10 @@ class Engine:
         is live the clock jumps to the next pending arrival (an idle step,
         ``ran=False``); a drained engine returns immediately.
         """
+        with span("engine.step"):
+            return self._step()
+
+    def _step(self) -> StepResult:
         ecfg = self.ecfg
         stats = self.stats
         pool_reqs = self._pool_reqs
@@ -737,7 +753,8 @@ class Engine:
         ev = self.events
         ev_mark = len(ev) if ev is not None else 0
 
-        self._admit_arrivals(now)
+        with span("engine.admit"):
+            self._admit_arrivals(now)
         # resilience checks run at megastep boundaries, before the
         # scheduler sees the pool; both are gated so the default engine
         # (no deadlines, no watermark) takes neither branch
@@ -783,21 +800,22 @@ class Engine:
         if self._parked:
             sched_entries = {rid: e for rid, e in entries.items()
                              if rid not in self._parked}
-        decision = select_batch(
-            sched_entries, policy=ecfg.policy, max_batch=ecfg.max_batch,
-            mem_budget=ecfg.mem_budget,
-            bytes_fn=lambda e: self._bytes_for(
-                pool_reqs[e.rid].context_len + self._k),
-            lookahead=self._k, now=now, age_boost=ecfg.age_boost,
-            age_delay=ecfg.age_delay_s,
-            deadline_slack=ecfg.deadline_slack_s)
+        with span("engine.schedule"):
+            decision = select_batch(
+                sched_entries, policy=ecfg.policy, max_batch=ecfg.max_batch,
+                mem_budget=ecfg.mem_budget,
+                bytes_fn=lambda e: self._bytes_for(
+                    pool_reqs[e.rid].context_len + self._k),
+                lookahead=self._k, now=now, age_boost=ecfg.age_boost,
+                age_delay=ecfg.age_delay_s,
+                deadline_slack=ecfg.deadline_slack_s)
 
-        self._apply_preemptions(decision, pool_reqs, stats)
-        if self.paged:
-            # page-granular memory pressure: suspended (preempted but
-            # resident) pages yield before any admitted request starts
-            self._reclaim_pages(decision, pool_reqs, entries, stats)
-        self._apply_admissions(decision, pool_reqs, stats)
+            self._apply_preemptions(decision, pool_reqs, stats)
+            if self.paged:
+                # page-granular memory pressure: suspended (preempted but
+                # resident) pages yield before any admitted request starts
+                self._reclaim_pages(decision, pool_reqs, entries, stats)
+            self._apply_admissions(decision, pool_reqs, stats)
 
         # Prefill covers context_len - 1 tokens; the final known token is
         # always consumed by decode_step (which emits the next one). This
@@ -830,26 +848,28 @@ class Engine:
             pf_plan.append((r, take))
             budget -= take
 
-        if self.paged:
-            # allocate pages ahead of the writes this iteration performs
-            # (decode rows pre-reserve their whole megastep budget: the
-            # block table is frozen while the k steps run on device)
-            for r, take in pf_plan:
-                self._ensure_pages(r, r.entry.prefill_done + take, entries)
-            for r in decoding:
-                self._ensure_pages(
-                    r, r.context_len + self._row_budget(r) - 1, entries)
-        if self.prefix_cache:
-            # COW guard: any shared page covering a position about to be
-            # written is replaced by a private copy first (a no-op in the
-            # standard flow — shared pages are full and writes land past
-            # them — but it makes the immutability invariant enforced)
-            make_writable = (self.pool.make_writable if self.pool is not None
-                             else self.blocks.make_writable)
-            for r, _take in pf_plan:
-                make_writable(r.rid, r.entry.prefill_done)
-            for r in decoding:
-                make_writable(r.rid, max(r.context_len - 1, 0))
+        with span("engine.pages"):
+            if self.paged:
+                # allocate pages ahead of the writes this iteration performs
+                # (decode rows pre-reserve their whole megastep budget: the
+                # block table is frozen while the k steps run on device)
+                for r, take in pf_plan:
+                    self._ensure_pages(r, r.entry.prefill_done + take, entries)
+                for r in decoding:
+                    self._ensure_pages(
+                        r, r.context_len + self._row_budget(r) - 1, entries)
+            if self.prefix_cache:
+                # COW guard: any shared page covering a position about to be
+                # written is replaced by a private copy first (a no-op in the
+                # standard flow — shared pages are full and writes land past
+                # them — but it makes the immutability invariant enforced)
+                make_writable = (self.pool.make_writable
+                                 if self.pool is not None
+                                 else self.blocks.make_writable)
+                for r, _take in pf_plan:
+                    make_writable(r.rid, r.entry.prefill_done)
+                for r in decoding:
+                    make_writable(r.rid, max(r.context_len - 1, 0))
 
         # capture per-row decode contexts before tokens are appended:
         # the cost model charges context c+1..c+n for a row emitting n
@@ -860,124 +880,126 @@ class Engine:
             emitted = self._sim_step(pf_plan, decoding)
 
         # ---- bookkeeping / clock -------------------------------------
-        pf_tokens = sum(t for _, t in pf_plan)
-        pf_ctx = max((r.context_len for r, _ in pf_plan), default=0)
-        dt = self.cost.megastep_time(
-            dec_ctxs, [emitted.get(r.rid, 0) for r in decoding],
-            pf_tokens, pf_ctx)
-        dt += self._swap_pending_s              # DMA stalls the batch
-        self._swap_pending_s = 0.0
-        # externally-priced predictor work (BERT-sized prompt models,
-        # ELIS proxy re-predictions) charged this step stalls the clock;
-        # zero-flop strategies (recycled probe, analysis oracles) add
-        # exactly 0.0 — legacy results stay byte-identical
-        pred_flops = self.predictor.take_cost_flops()
-        if pred_flops:
-            pred_s = self.cost.predictor_time(pred_flops)
-            dt += pred_s
-            stats.predictor_time_s += pred_s
-        stats.predictor_calls = self.predictor.cost_calls
-        if self._slowdown != 1.0:
-            # straggler fault injection: the replica's hardware runs
-            # slower, dilating the whole megastep (compute, DMA stalls,
-            # predictor work). 1.0 — the default — leaves the clock
-            # byte-identical to the pre-resilience engine.
-            dt *= self._slowdown
-        now_next = now + dt
-        completed: list[Request] = []
-        for r, take in pf_plan:
-            r.entry.prefill_done += take
-            # tokens actually materialized in the cache (never credited
-            # past what was written: a mid-prefill preemption must not
-            # mark unwritten positions as retained). The prefilled_tokens
-            # stat counts only the newly materialized portion: a decoded
-            # row re-enters the prefill classification to catch
-            # prefill_done up to its grown context, but those positions
-            # were already KV-written by decode and are not fresh prefill
-            # work.
-            kv_before = getattr(r, "_kv_written", 0)
-            stats.prefilled_tokens += max(r.entry.prefill_done - kv_before, 0)
-            r._kv_written = max(kv_before, r.entry.prefill_done)
-        for r in decoding:
-            n = emitted.get(r.rid, 0)
-            r._kv_written = max(getattr(r, "_kv_written", 0),
-                                r.context_len - 1)
-            r.entry.age += n
-            if r.first_token_time < 0 and n > 0:
-                r.first_token_time = now_next
-                if ev is not None:
-                    ev.emit(now_next, r.rid, "first_token")
-                if self._subs:
-                    self._notify(now_next, r.rid, "first_token")
-            if ev is not None and n > 0:
-                ev.emit(now_next, r.rid, "tokens", n)
-            if self._subs and n > 0:
-                self._notify(now_next, r.rid, "tokens", float(n))
-            if (len(r.generated) >= r.true_out_len
-                    or len(r.generated) >= r.max_new_tokens):
-                r.entry.state = ReqState.FINISHED
-                r.finish_time = now_next
-                stats.latencies.append(r.latency())
-                stats.ttfts.append(r.ttft())
-                completed.append(r)
-                if ev is not None:
-                    ev.emit(now_next, r.rid, "finish")
-                if self._subs:
-                    self._notify(now_next, r.rid, "finish")
-                if self.prefix_cache:
-                    # publish the finished request's prompt pages before
-                    # release parks them in the reusable pool
-                    self._register_prompt(r)
-                if self.pool is not None:
-                    self.pool.release(r.rid)
-                elif r.slot >= 0:
-                    r.slot = -1
-                if self.blocks is not None and self.pool is None:
-                    # sim mode only: real-mode release() freed the pages
-                    self.blocks.free_request(r.rid)
-
-        if self.blocks is not None:
-            for rid in decision.scheduled:
-                r = pool_reqs[rid]
-                if not r.done:
-                    self.blocks.note_cached(
-                        rid, getattr(r, "_kv_written", 0))
+        with span("engine.tokens"):
+            pf_tokens = sum(t for _, t in pf_plan)
+            pf_ctx = max((r.context_len for r, _ in pf_plan), default=0)
+            dt = self.cost.megastep_time(
+                dec_ctxs, [emitted.get(r.rid, 0) for r in decoding],
+                pf_tokens, pf_ctx)
+            dt += self._swap_pending_s              # DMA stalls the batch
+            self._swap_pending_s = 0.0
+            # externally-priced predictor work (BERT-sized prompt models,
+            # ELIS proxy re-predictions) charged this step stalls the clock;
+            # zero-flop strategies (recycled probe, analysis oracles) add
+            # exactly 0.0 — legacy results stay byte-identical
+            pred_flops = self.predictor.take_cost_flops()
+            if pred_flops:
+                pred_s = self.cost.predictor_time(pred_flops)
+                dt += pred_s
+                stats.predictor_time_s += pred_s
+            stats.predictor_calls = self.predictor.cost_calls
+            if self._slowdown != 1.0:
+                # straggler fault injection: the replica's hardware runs
+                # slower, dilating the whole megastep (compute, DMA stalls,
+                # predictor work). 1.0 — the default — leaves the clock
+                # byte-identical to the pre-resilience engine.
+                dt *= self._slowdown
+            now_next = now + dt
+            completed: list[Request] = []
+            for r, take in pf_plan:
+                r.entry.prefill_done += take
+                # tokens actually materialized in the cache (never credited
+                # past what was written: a mid-prefill preemption must not
+                # mark unwritten positions as retained). The prefilled_tokens
+                # stat counts only the newly materialized portion: a decoded
+                # row re-enters the prefill classification to catch
+                # prefill_done up to its grown context, but those positions
+                # were already KV-written by decode and are not fresh prefill
+                # work.
+                kv_before = getattr(r, "_kv_written", 0)
+                stats.prefilled_tokens += max(
+                    r.entry.prefill_done - kv_before, 0)
+                r._kv_written = max(kv_before, r.entry.prefill_done)
+            for r in decoding:
+                n = emitted.get(r.rid, 0)
+                r._kv_written = max(getattr(r, "_kv_written", 0),
+                                    r.context_len - 1)
+                r.entry.age += n
+                if r.first_token_time < 0 and n > 0:
+                    r.first_token_time = now_next
+                    if ev is not None:
+                        self._emit(now_next, r.rid, "first_token")
+                    if self._subs:
+                        self._notify(now_next, r.rid, "first_token")
+                if ev is not None and n > 0:
+                    self._emit(now_next, r.rid, "tokens", n)
+                if self._subs and n > 0:
+                    self._notify(now_next, r.rid, "tokens", float(n))
+                if (len(r.generated) >= r.true_out_len
+                        or len(r.generated) >= r.max_new_tokens):
+                    r.entry.state = ReqState.FINISHED
+                    r.finish_time = now_next
+                    stats.latencies.append(r.latency())
+                    stats.ttfts.append(r.ttft())
+                    completed.append(r)
+                    if ev is not None:
+                        self._emit(now_next, r.rid, "finish")
+                    if self._subs:
+                        self._notify(now_next, r.rid, "finish")
                     if self.prefix_cache:
+                        # publish the finished request's prompt pages before
+                        # release parks them in the reusable pool
                         self._register_prompt(r)
-        if self.prefix_cache:
-            gen = self.blocks.index_gen
-            for r in pool_reqs.values():
-                if r.done:
-                    continue
-                if r.entry.state is ReqState.WAITING:
-                    # refresh the prospective hit only when the index
-                    # actually changed (generation-gated): match_prefix
-                    # is O(prompt pages) and a long WAITING queue would
-                    # otherwise pay it every step for nothing
-                    if self._hint_gen.get(r.rid) != gen:
-                        self._prefix_hint[r.rid] = self.blocks.match_len(
-                            self._match_tokens(r))
-                        self._hint_gen[r.rid] = gen
-                    self._sync_prefill_left(
-                        r, self._prefix_hint.get(r.rid, 0))
-                else:
-                    self._sync_prefill_left(r)
+                    if self.pool is not None:
+                        self.pool.release(r.rid)
+                    elif r.slot >= 0:
+                        r.slot = -1
+                    if self.blocks is not None and self.pool is None:
+                        # sim mode only: real-mode release() freed the pages
+                        self.blocks.free_request(r.rid)
 
-        if self.prefix_cache:
-            # page-accurate under sharing: each physical page counts once
-            # however many block tables reference it, and reusable cache
-            # pages (refcount zero) are reclaimable, hence free
-            mem = self.cost.resident_page_bytes(self.blocks.used_pages())
-        else:
-            mem = sum(self._bytes_for(pool_reqs[rid].context_len)
-                      for rid in decision.scheduled)
             if self.blocks is not None:
-                mem += self._page_bytes * sum(
-                    self.blocks.resident_pages(e.rid)
-                    for e in entries.values()
-                    if e.state is ReqState.PREEMPTED)
-        stats.peak_mem_bytes = max(stats.peak_mem_bytes, mem)
-        self._last_mem = mem
+                for rid in decision.scheduled:
+                    r = pool_reqs[rid]
+                    if not r.done:
+                        self.blocks.note_cached(
+                            rid, getattr(r, "_kv_written", 0))
+                        if self.prefix_cache:
+                            self._register_prompt(r)
+            if self.prefix_cache:
+                gen = self.blocks.index_gen
+                for r in pool_reqs.values():
+                    if r.done:
+                        continue
+                    if r.entry.state is ReqState.WAITING:
+                        # refresh the prospective hit only when the index
+                        # actually changed (generation-gated): match_prefix
+                        # is O(prompt pages) and a long WAITING queue would
+                        # otherwise pay it every step for nothing
+                        if self._hint_gen.get(r.rid) != gen:
+                            self._prefix_hint[r.rid] = self.blocks.match_len(
+                                self._match_tokens(r))
+                            self._hint_gen[r.rid] = gen
+                        self._sync_prefill_left(
+                            r, self._prefix_hint.get(r.rid, 0))
+                    else:
+                        self._sync_prefill_left(r)
+
+            if self.prefix_cache:
+                # page-accurate under sharing: each physical page counts once
+                # however many block tables reference it, and reusable cache
+                # pages (refcount zero) are reclaimable, hence free
+                mem = self.cost.resident_page_bytes(self.blocks.used_pages())
+            else:
+                mem = sum(self._bytes_for(pool_reqs[rid].context_len)
+                          for rid in decision.scheduled)
+                if self.blocks is not None:
+                    mem += self._page_bytes * sum(
+                        self.blocks.resident_pages(e.rid)
+                        for e in entries.values()
+                        if e.state is ReqState.PREEMPTED)
+            stats.peak_mem_bytes = max(stats.peak_mem_bytes, mem)
+            self._last_mem = mem
         stats.iterations += 1
         self._now = now_next
         stats.sim_time = (self._now if ecfg.mode == "sim"
@@ -1049,9 +1071,8 @@ class Engine:
                 if self.events is not None:
                     # the arrival was never admitted, so its arrival
                     # event is emitted here — goodput counts it
-                    self.events.emit(req.arrival, rid, "arrival")
-                    self.events.emit(max(self._now, req.arrival), rid,
-                                     reason)
+                    self._emit(req.arrival, rid, "arrival")
+                    self._emit(max(self._now, req.arrival), rid, reason)
                 if self._subs:
                     self._notify(max(self._now, req.arrival), rid, reason)
                 return True
@@ -1084,7 +1105,7 @@ class Engine:
         del self._pool_reqs[rid]
         self._book_cancel(reason)
         if self.events is not None:
-            self.events.emit(self._now, rid, reason)
+            self._emit(self._now, rid, reason)
         if self._subs:
             self._notify(self._now, rid, reason)
         return True
@@ -1296,7 +1317,7 @@ class Engine:
         del self._entries[rid]
         del self._pool_reqs[rid]
         if self.events is not None:
-            self.events.emit(self._now, rid, "handoff", n_pages)
+            self._emit(self._now, rid, "handoff", n_pages)
         pred = req.entry.pred_remaining if self._magnitude else None
         return KVHandoff(req=req, kv_tokens=kv_tokens, n_pages=n_pages,
                          nbytes=n_pages * self._page_bytes,
@@ -1369,8 +1390,7 @@ class Engine:
             req.entry.preemptions += 1
             stats.n_preemptions += 1
             if self.events is not None:
-                self.events.emit(self._now, rid, "preempt",
-                                 req.entry.preemptions)
+                self._emit(self._now, rid, "preempt", req.entry.preemptions)
             if self._retain:
                 # paged: pages stay resident ("suspended"); the reclamation
                 # loop evicts/swaps them tail-first only under real memory
@@ -1389,7 +1409,7 @@ class Engine:
                 self._swap_pending_s += nbytes / self.ecfg.hardware.dma_bw
                 req._swapped = True
                 if self.events is not None:
-                    self.events.emit(self._now, rid, "swap", nbytes)
+                    self._emit(self._now, rid, "swap", nbytes)
                 if self.blocks is not None:
                     # the whole cache is on host now; its device pages are
                     # free (swap-in is charged once at re-admission)
@@ -1432,7 +1452,7 @@ class Engine:
             was_preempted = req.entry.state is ReqState.PREEMPTED
             req.entry.state = ReqState.RUNNING
             if self.events is not None:
-                self.events.emit(self._now, rid, "admit")
+                self._emit(self._now, rid, "admit")
             if (self.prefix_cache and not was_preempted
                     and req.entry.prefill_done == 0
                     and not self.blocks.pages.get(rid)):
@@ -1445,7 +1465,7 @@ class Engine:
                     req.entry.prefill_done = hit
                     req._kv_written = hit
                     if self.events is not None:
-                        self.events.emit(self._now, rid, "prefix_hit", hit)
+                        self._emit(self._now, rid, "prefix_hit", hit)
                 self._prefix_hint.pop(rid, None)
                 self._hint_gen.pop(rid, None)
                 self._sync_prefill_left(req)
@@ -1455,7 +1475,7 @@ class Engine:
                 self._swap_pending_s += nbytes / self.ecfg.hardware.dma_bw
                 req._swapped = False
                 if self.events is not None:
-                    self.events.emit(self._now, rid, "swap", nbytes)
+                    self._emit(self._now, rid, "swap", nbytes)
             if self._retain and was_preempted:
                 n_host = self.blocks.host_pages.get(rid, 0)
                 if n_host:                          # page-granular swap-in
@@ -1464,7 +1484,7 @@ class Engine:
                     self._swap_pending_s += nbytes / self.ecfg.hardware.dma_bw
                     self.blocks.swap_in(rid)
                     if self.events is not None:
-                        self.events.emit(self._now, rid, "swap", nbytes)
+                        self._emit(self._now, rid, "swap", nbytes)
                 # copy-on-admit: retained prefix re-links (block-table
                 # write); only the evicted tail is ever recomputed
                 retained = min(self.blocks.resume(rid),
@@ -1536,8 +1556,7 @@ class Engine:
                     stats.swapped_bytes += nbytes
                     self._swap_pending_s += nbytes / self.ecfg.hardware.dma_bw
                     if self.events is not None:
-                        self.events.emit(self._now, victim.rid, "swap",
-                                         nbytes)
+                        self._emit(self._now, victim.rid, "swap", nbytes)
             elif self.pool is not None:
                 freed = self.pool.evict_tail(victim.rid, n_pages)
             else:
@@ -1626,7 +1645,6 @@ class Engine:
         pool = self.pool
         dev = pool.device
         B = pool.n_slots
-        pool.flush_resets()
         # The scheduler's prefill classification runs on prefill_done, which
         # trails _kv_written after a decode megastep (decode writes KV for
         # the tokens it consumes but only the prefill bookkeeping advances
@@ -1645,71 +1663,81 @@ class Engine:
         # every input goes to the device before the first dispatch, so no
         # host-to-device copy waits on a running prefill
         pf_in = dec_in = None
-        if feed:
-            # bucketize the chunk width (powers of two), as the
-            # reference does to bound its recompiles
-            need = max(n for _, _, n in feed)
-            chunk = 8
-            while chunk < need:
-                chunk *= 2
-            chunk = min(chunk, self.ecfg.prefill_chunk)
-            tokens = np.zeros((B, chunk), np.int32)
-            valid = np.zeros((B, chunk), bool)
-            for r, start, n in feed:
-                full = r.prompt + r.generated
-                seg = full[start:start + n]
-                tokens[r.slot, :len(seg)] = seg
-                valid[r.slot, :len(seg)] = True
-            pf_in = (torch.from_numpy(tokens).to(dev),
-                     torch.from_numpy(valid).to(dev))
-        if decoding:
-            tokens = np.zeros((B, 1), np.int32)
-            active = np.zeros((B,), bool)
-            budget = np.zeros((B,), np.int32)
-            for r in decoding:
-                tokens[r.slot, 0] = (r.generated[-1] if r.generated
-                                     else (r.prompt[-1] if r.prompt else 1))
-                active[r.slot] = True
-                budget[r.slot] = self._row_budget(r)
-            dec_in = tuple(torch.from_numpy(x).to(dev)
-                           for x in (tokens, active, budget))
+        with span("engine.stage"):
+            pool.flush_resets()
+            if feed:
+                # bucketize the chunk width (powers of two), as the
+                # reference does to bound its recompiles
+                need = max(n for _, _, n in feed)
+                chunk = 8
+                while chunk < need:
+                    chunk *= 2
+                chunk = min(chunk, self.ecfg.prefill_chunk)
+                tokens = np.zeros((B, chunk), np.int32)
+                valid = np.zeros((B, chunk), bool)
+                for r, start, n in feed:
+                    full = r.prompt + r.generated
+                    seg = full[start:start + n]
+                    tokens[r.slot, :len(seg)] = seg
+                    valid[r.slot, :len(seg)] = True
+                pf_in = (torch.from_numpy(tokens).to(dev),
+                         torch.from_numpy(valid).to(dev))
+            if decoding:
+                tokens = np.zeros((B, 1), np.int32)
+                active = np.zeros((B,), bool)
+                budget = np.zeros((B,), np.int32)
+                for r in decoding:
+                    tokens[r.slot, 0] = (r.generated[-1] if r.generated
+                                         else (r.prompt[-1] if r.prompt
+                                               else 1))
+                    active[r.slot] = True
+                    budget[r.slot] = self._row_budget(r)
+                dec_in = tuple(torch.from_numpy(x).to(dev)
+                               for x in (tokens, active, budget))
         pf_out = dec_out = None
         if pf_in is not None:
-            _, _, tap_sum, n_new = self.model.prefill_chunk(
-                pool.cache, pf_in[0], valid=pf_in[1])
+            with span("engine.prefill"):
+                _, _, tap_sum, n_new = self.model.prefill_chunk(
+                    pool.cache, pf_in[0], valid=pf_in[1])
             pf_out = (tap_sum, n_new)
         if dec_in is not None:
-            toks, _, probs, n_emit = self.model.decode_multi(
-                pool.cache, *dec_in, k=self._k)
+            with span("engine.decode"):
+                toks, _, probs, n_emit = self.model.decode_multi(
+                    pool.cache, *dec_in, k=self._k)
             dec_out = (toks, probs, n_emit)
 
         if pf_out is not None:
-            tap_sum = pf_out[0].cpu().numpy()
-            n_new = pf_out[1].cpu().numpy()
-            for r, start, n in feed:
-                if r.tap_sum is None:
-                    r.tap_sum = np.zeros(self.cfg.d_model, np.float32)
-                r.tap_sum = r.tap_sum + tap_sum[r.slot]
-                r.tap_cnt += int(n_new[r.slot])
-                if start + n >= r.context_len - 1:
-                    tap_mean = r.tap_sum / max(r.tap_cnt, 1)
-                    pred = self.predictor.on_prefill(r, tap_mean)
-                    r.entry.pred_remaining = pred
+            with span("engine.fetch"):
+                tap_sum = pf_out[0].cpu().numpy()
+                n_new = pf_out[1].cpu().numpy()
+            with span("engine.tokens"):
+                for r, start, n in feed:
+                    if r.tap_sum is None:
+                        r.tap_sum = np.zeros(self.cfg.d_model, np.float32)
+                    r.tap_sum = r.tap_sum + tap_sum[r.slot]
+                    r.tap_cnt += int(n_new[r.slot])
+                    if start + n >= r.context_len - 1:
+                        tap_mean = r.tap_sum / max(r.tap_cnt, 1)
+                        pred = self.predictor.on_prefill(r, tap_mean)
+                        r.entry.pred_remaining = pred
         emitted: dict[int, int] = {}
         if dec_out is not None:
-            toks_np, probs_np, n_np = (x.cpu().numpy() for x in dec_out)
-            for r in decoding:
-                n = int(n_np[r.slot])
-                for t in range(n):
-                    r.generated.append(int(toks_np[r.slot, t]))
-                    if len(r.generated) % self.ecfg.probe_interval == 0:
-                        # device-side softmax posterior at the probe boundary
-                        r.entry.pred_remaining = self.predictor.on_token(
-                            r, probs_np[r.slot, t])
-                    else:   # between probes: deterministic aging
-                        r.entry.pred_remaining = max(
-                            r.entry.pred_remaining - 1.0, 0.0)
-                emitted[r.rid] = n
+            with span("engine.fetch"):
+                toks_np, probs_np, n_np = (x.cpu().numpy() for x in dec_out)
+            with span("engine.tokens"):
+                for r in decoding:
+                    n = int(n_np[r.slot])
+                    for t in range(n):
+                        r.generated.append(int(toks_np[r.slot, t]))
+                        if len(r.generated) % self.ecfg.probe_interval == 0:
+                            # device-side softmax posterior at the probe
+                            # boundary
+                            r.entry.pred_remaining = self.predictor.on_token(
+                                r, probs_np[r.slot, t])
+                        else:   # between probes: deterministic aging
+                            r.entry.pred_remaining = max(
+                                r.entry.pred_remaining - 1.0, 0.0)
+                    emitted[r.rid] = n
         return emitted
 
 
