@@ -2082,11 +2082,13 @@ def _serve(torch, cfg, model, reqs, knobs, pred):
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import run_policy
     steps = [0, 0]
-    decode_step, prefill_chunk = model.decode_step, model.prefill_chunk
+    decode_multi, prefill_chunk = model.decode_multi, model.prefill_chunk
 
     def counted(*args, **kwargs):
-        steps[0] += 1
-        return decode_step(*args, **kwargs)
+        # a megastep is k decode steps, replayed from a CUDA graph after
+        # its first call: count them here, not in decode_step's Python
+        steps[0] += kwargs.get("k", 1)
+        return decode_multi(*args, **kwargs)
 
     def counted_prefill(*args, **kwargs):
         steps[1] += 1
@@ -2106,19 +2108,21 @@ def _serve(torch, cfg, model, reqs, knobs, pred):
             return out
         return watched
 
-    model.decode_step, model.prefill_chunk = counted, counted_prefill
+    model.decode_multi, model.prefill_chunk = counted, counted_prefill
     pred.on_prefill, pred.on_token = (watch(pred.on_prefill),
                                       watch(pred.on_token))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
+    model.decode_graph.counts.take()
     t0 = time.perf_counter()
     stats = run_policy(cfg, "trail", reqs, predictor=pred, model=model,
                        device="cuda", **knobs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
-    del model.decode_step, model.prefill_chunk, pred.on_prefill, \
+    graph = model.decode_graph.counts.take()
+    del model.decode_multi, model.prefill_chunk, pred.on_prefill, \
         pred.on_token
     peak = torch.cuda.max_memory_allocated()
     out_tokens = sum(r.true_out_len for r in reqs)
@@ -2135,6 +2139,8 @@ def _serve(torch, cfg, model, reqs, knobs, pred):
         f"{(out_tokens + s['prefilled_tokens']) / wall:.1f} tokens/s with "
         f"prefill, max_memory_allocated {peak / 2**30:.2f} GiB")
     log(f"[serve] kernel launches on the main path: {launches}")
+    log(f"[serve] decode megasteps: {graph['captures']} captured as a CUDA "
+        f"graph, {graph['replays']} replayed from one")
     if len(stats.latencies) != len(reqs) or len(served) != len(reqs):
         fail("not every request finished")
     _check_requests(torch, cfg, served.values())
@@ -2241,11 +2247,13 @@ def _cluster_run(torch, label, cfg, model, knobs, rc, faults=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
+    model.decode_graph.counts.take()
     t0 = time.perf_counter()
     stats = router.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
+    graph = model.decode_graph.counts.take()
     s = stats.summary()
     steps = [r["iterations"] for r in stats.replica_summaries]
     log(f"[cluster] {label}: {s['finished']}/12 finished, dispatch counts "
@@ -2258,7 +2266,10 @@ def _cluster_run(torch, label, cfg, model, knobs, rc, faults=None,
         f"max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, used pages "
         f"at the drain {stats.leaked_pages}")
-    log(f"[cluster] {label}: kernel launches {launches}")
+    log(f"[cluster] {label}: kernel launches {launches}; decode "
+        f"megasteps {graph['captures']} captured as a CUDA graph (the "
+        f"replicas share one model and its one graph), {graph['replays']} "
+        f"replayed")
     if s["finished"] != 12 or len(stats.latencies) != 12:
         fail(f"cluster {label}: {s['finished']} of 12 finished")
     _check_requests(torch, cfg, reqs)

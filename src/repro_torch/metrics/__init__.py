@@ -15,6 +15,8 @@ Submodules:
 * ``spans``     — host spans inside the engine, the model and the kernel
   bindings, on the clock of the events' ``wall`` stamps (off unless
   switched on; the port's own, with no counterpart in the reference).
+* ``counters``  — `GraphCounts`: a model's decode megasteps captured as
+  a CUDA graph and replayed from one (the port's own).
 
 The rest is a copy of the reference package's ``metrics`` (pure Python
 and numpy): the same event stream rolls up into the same report, byte for

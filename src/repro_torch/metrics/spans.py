@@ -8,7 +8,8 @@ the steps that served it lie on the same clock.
 Two levels, set with `set_level`:
 
 * ``CLOCK``  — the engine's stages (``engine.*``), about ten spans a step,
-  opened with `span`;
+  and the capture of the decode megastep's CUDA graph
+  (``model.graph_capture``, rare), opened with `span`;
 * ``DETAIL`` — also the model's, the MoE layer's and the kernel
   bindings' (``model.*``, ``moe.*``, ``kernel.*``), opened with `detail`:
   hundreds a decode megastep, meant for the few steps a profiler records.
@@ -36,10 +37,11 @@ import torch
 
 OFF, CLOCK, DETAIL = 0, 1, 2
 
-#: the engine's spans (`span`, level ``CLOCK``)
+#: the engine's spans and the megastep graph's capture (`span`, level
+#: ``CLOCK``)
 ENGINE = ("engine.step", "engine.admit", "engine.schedule", "engine.pages",
           "engine.stage", "engine.prefill", "engine.decode", "engine.fetch",
-          "engine.tokens")
+          "engine.tokens", "model.graph_capture")
 #: the model's, the MoE layer's and each kernel binding's (`detail`, level
 #: ``DETAIL``); one ``kernel.<binding>`` per key of ``kernels.build.launches``
 DETAILED = ("model.decode_step", "model.embed", "model.attention",

@@ -60,6 +60,7 @@ from repro_torch.core import predictor
 from repro_torch.metrics.spans import detail
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
+from repro_torch.models.decode_graph import MegastepGraph
 from repro_torch.models.layers import (apply_norm, cdtype, embed_tokens,
                                        pdtype, unembed)
 from repro_torch.training.checkpoint import load_npz  # noqa: F401 (re-export)
@@ -139,6 +140,9 @@ class Model(nn.Module):
         self.probe = nn.ParameterDict({
             "w1": param(d, pc.hidden), "b1": param(pc.hidden),
             "w2": param(pc.hidden, pc.num_bins), "b2": param(pc.num_bins)})
+        #: the decode megastep's CUDA graph, with its counts of captures
+        #: and replays (``decode_graph.counts``)
+        self.decode_graph = MegastepGraph()
 
     # ------------------------------------------------------------------
     # Init
@@ -527,6 +531,11 @@ class Model(nn.Module):
 
         Returns (tokens (B,k) int32 with -1 past each row's halt point,
         cache, probe_probs (B,k,num_bins) f32, n_emitted (B,) int32).
+
+        On a CUDA device the megastep is one CUDA graph, captured at the
+        first call of each key and replayed after (``models.decode_graph``;
+        ``decode_graph.counts`` counts both); on the CPU and meta it runs
+        eagerly.
         """
         B = tokens.shape[0]
         dev = tokens.device
@@ -534,6 +543,16 @@ class Model(nn.Module):
             active = torch.ones(B, dtype=torch.bool, device=dev)
         if budget is None:
             budget = torch.full((B,), k, dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            return self.decode_graph.run(self._megastep, cache, tokens,
+                                         active, budget, k, eos_id)
+        return self._megastep(cache, tokens, active, budget, k, eos_id)
+
+    def _megastep(self, cache: dict, tokens, active, budget, k: int,
+                  eos_id: int):
+        """``decode_multi``'s body, eager: what the CUDA graph captures."""
+        B = tokens.shape[0]
+        dev = tokens.device
         budget = budget.to(torch.int32).clamp_max(k)
         tok = tokens.to(torch.int32)
         emitted = torch.zeros(B, dtype=torch.int32, device=dev)
