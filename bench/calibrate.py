@@ -30,8 +30,8 @@ def readings(run, quant=None) -> dict:
     """The readings of the sample a run of this seed compares: the
     program's, or with ``quant`` the control's."""
     import check
-    return check.compare(run.m, run.w.views, run.sample()[0], run.probes,
-                         quant=quant)
+    return check.compare(run.cell.models.Reference, run.m, run.w.views,
+                         run.sample()[0], run.probes, quant=quant)
 
 
 def main(argv=None) -> int:

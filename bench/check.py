@@ -19,7 +19,9 @@ over each prompt and the tokens it was served. Two numbers are compared:
   in bfloat16 as in float8, so the widest gap is set by the largest such
   swap; how often swaps happen still follows the precision.
 
-A cell's limits file names the numbers it compares.
+A cell's limits file names the numbers it compares. The reference is the
+cell's: ``reference.Reference``, or the ``Reference`` of the model module
+its configuration names (``harness.Models``).
 
 The control (``quant="fp8"``) is the reference put in the program's place
 one precision lower: its own first token at each position of the same
@@ -33,8 +35,6 @@ import random
 
 import numpy as np
 import torch
-
-from reference import Reference
 
 
 def choose(reqs: list, seed: int, tokens: int, most: int) -> list:
@@ -62,18 +62,18 @@ def _inputs(sample: list, probes: dict):
     return seqs, starts, taps
 
 
-def compare(m: dict, views: dict, sample: list, probes: dict,
+def compare(reference, m: dict, views: dict, sample: list, probes: dict,
             quant: str | None = None) -> dict:
     """Readings of one sample: ``logit_gap`` and ``probe_gap`` of the
-    program's served tokens and posteriors against the reference, or,
-    with ``quant``, of the control's.
+    program's served tokens and posteriors against ``reference`` (the
+    class), or, with ``quant``, of the control's.
 
     ``probes`` maps a request id to its [(position, posterior)] as the
     program's predictor received them."""
     seqs, starts, taps = _inputs(sample, probes)
-    ref = Reference(m, views).run(seqs, starts, taps)
+    ref = reference(m, views).run(seqs, starts, taps)
     if quant:
-        ctl = Reference(m, views, quant=quant).run(seqs, starts, taps)
+        ctl = reference(m, views, quant=quant).run(seqs, starts, taps)
     logit_gap = probe_gap = logit_sum = probe_sum = 0.0
     n_tokens = n_probes = 0
     for i, r in enumerate(sample):

@@ -3,6 +3,9 @@
 ``Timeline`` keeps, for the profiled steps only, every device activity
 (kernels, copies, fills) and the host ranges the harness labels with
 ``torch.profiler.record_function``, on the profiler's clock in seconds.
+The program's spans (``repro_torch.metrics.spans.NAMES``) open such ranges
+too; the profiler mirrors every range on the device as an annotation,
+which `labels` keeps from counting as device activity.
 From them: the seconds the device was busy (the union of its activities),
 the device time of kernels by name, and the idle gaps between activities,
 each named by the innermost labelled host range it falls in.
@@ -17,6 +20,12 @@ import bisect
 LABELS = ("sched.select_batch", "predictor.initial", "predictor.on_prefill",
           "predictor.on_token", "model.prefill_chunk", "model.decode_multi",
           "engine.device_step", "bench.step")
+
+
+def labels() -> tuple:
+    """Every labelled host range: the harness's and the program's spans."""
+    from repro_torch.metrics import spans
+    return LABELS + spans.NAMES
 
 
 def _events(prof):
@@ -60,6 +69,7 @@ class Timeline:
 
     def __init__(self, prof):
         ev = _events(prof)
+        names = set(labels())
         steps = sorted((a, b) for n, d, a, b in ev
                        if not d and n == "bench.step")
         self.steps = steps
@@ -69,9 +79,9 @@ class Timeline:
             lo = hi = 0.0
         self.start, self.end = lo, hi
         self.device = [(n, a, b) for n, d, a, b in ev
-                       if d and n not in LABELS and b > lo and a < hi]
+                       if d and n not in names and b > lo and a < hi]
         self.ranges = [(n, a, b) for n, d, a, b in ev
-                       if not d and n in LABELS and b > lo and a < hi]
+                       if not d and n in names and b > lo and a < hi]
         self.busy = _union([(max(a, lo), min(b, hi))
                             for _, a, b in self.device])
 

@@ -9,6 +9,13 @@ that they read the same work whatever kernel a later change runs there.
 Counts are per token or per call, summed by the callers. Bytes count each
 input read once and each output written once, at the dtype the
 configuration states (bfloat16: 2 bytes).
+
+These counts are those of a pre-norm attention decoder, dense or MoE, in
+which every layer attends. The readers take them from ``Record.work``: this
+module, or the ``work`` of a configuration's model module (``models/``),
+which has the same functions (``step_flops``, ``decode_attn_bytes``,
+``prefill_attn_work``, ``attn_layers``) for its own architecture. The
+peaks and ``bound_s`` are the chip's and stay here.
 """
 
 from __future__ import annotations
@@ -27,6 +34,11 @@ def q_dim(m: dict) -> int:
 def kv_dim(m: dict) -> int:
     """Width of the key (or value) projection."""
     return m["num_kv_heads"] * m["head_dim"]
+
+
+def attn_layers(m: dict) -> int:
+    """Layers whose attention the paged kernels run: every layer."""
+    return m["num_layers"]
 
 
 def layer_params(m: dict) -> int:
@@ -53,7 +65,7 @@ def unembed_flops(m: dict) -> float:
 
 def attn_flops(m: dict, keys: int) -> float:
     """QK^T and PV of one query over ``keys`` keys, every layer."""
-    return 4.0 * q_dim(m) * keys * m["num_layers"]
+    return 4.0 * q_dim(m) * keys * attn_layers(m)
 
 
 def prefill_row_flops(m: dict, start: int, n: int) -> float:
@@ -72,8 +84,8 @@ def decode_token_flops(m: dict, keys: int) -> float:
 def decode_attn_bytes(m: dict, keys: int) -> float:
     """Bytes one single-query attention needs in every layer: K and V of
     ``keys`` positions, the query read and the output written."""
-    return m["num_layers"] * ACT_BYTES * (2 * keys * kv_dim(m) +
-                                          2 * q_dim(m))
+    return attn_layers(m) * ACT_BYTES * (2 * keys * kv_dim(m) +
+                                         2 * q_dim(m))
 
 
 def prefill_attn_work(m: dict, start: int, n: int) -> tuple[float, float]:

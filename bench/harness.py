@@ -10,12 +10,21 @@ moment, so the next ``step()`` admits it), loops on ``step()``, and stamps
 token, or its last, returns. Every time runs from the request's due time.
 
 The harness sees the program only through wrappers it puts around the
-engine's ``_device_step`` (the work of each step: rows prefilled, tokens
-emitted), the predictor's three hooks (their host time, and the probe
-posteriors the predictor receives, which the check compares), and with
-``--trace 1`` around ``Model.prefill_chunk`` and ``Model.decode_multi``
-(CUDA events), the module global ``select_batch`` of the engine (host
-time), and ``torch.profiler`` over a few steps in the middle of the window.
+engine's ``step`` (the launches each kernel binding counted,
+``kernels.build.launches``, on every step; with ``--trace 1`` the program's
+own spans at the engine's level, ``metrics.spans.CLOCK``, on the window's
+steps outside the profiler), its ``_device_step`` (the work of each step:
+rows prefilled, tokens emitted), the predictor's three hooks (their host
+time, and the probe posteriors the predictor receives, which the check
+compares), and with ``--trace 1`` around ``Model.prefill_chunk`` and
+``Model.decode_multi`` (CUDA events), the module global ``select_batch`` of
+the engine (host time), and ``torch.profiler`` over a few steps in the
+middle of the window. An untraced run switches no span on.
+
+A configuration file may name a model module (``"model_module": NAME``:
+``models/NAME.py`` beside ``configs/``) for an architecture that
+``reference.Reference``, ``weights.STD`` and ``flops`` do not describe; see
+`Models`.
 """
 
 from __future__ import annotations
@@ -35,7 +44,9 @@ import torch
 
 import check
 import devtrace
+import flops
 import gen
+import reference
 import weights
 
 HERE = Path(__file__).resolve().parent
@@ -51,6 +62,44 @@ def blocked_modules() -> list[str]:
                   & set(BLOCKED))
 
 
+def load_module(path: Path, prefix: str):
+    """The Python file ``path``, loaded as a module of its own."""
+    name = prefix + path.stem.replace(".", "_").replace("-", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@dataclass(frozen=True)
+class Models:
+    """What a configuration's model is checked and counted with: the plain
+    reference (``Reference``, constructed as ``Reference(m, views,
+    quant=None)``, with ``run(seqs, logits_from, tap_at)``), the standard
+    deviation of each leaf (``STD``, by the last part of its name, as
+    ``weights.STD``), and the operation and byte counts of its work
+    (``work``, with ``flops``'s functions)."""
+
+    Reference: type = reference.Reference
+    STD: dict = field(default_factory=lambda: weights.STD)
+    work: object = flops
+
+
+def load_models(bench: Path, conf: dict) -> Models:
+    """The configuration's `Models`: those of ``models/<model_module>.py``
+    under ``bench`` where the file names one, each of ``Reference``,
+    ``STD`` (merged over ``weights.STD``) and ``work`` that it exports;
+    else ``reference.Reference``, ``weights.STD`` and ``flops`` themselves.
+    """
+    name = conf.get("model_module")
+    if name is None:
+        return Models()
+    mod = load_module(bench / "models" / f"{name}.py", "bench_model_")
+    return Models(Reference=getattr(mod, "Reference", reference.Reference),
+                  STD={**weights.STD, **getattr(mod, "STD", {})},
+                  work=getattr(mod, "work", flops))
+
+
 @dataclass
 class Cell:
     """One entry of ``workloads`` with the files it names."""
@@ -62,12 +111,16 @@ class Cell:
     chips: int
     end_to_end: list
     per_layer: list
+    models: Models = field(default_factory=Models)
 
 
 def load_cell(root: Path, workload: str) -> Cell:
-    """The cell ``workload`` of ``root/BENCHMARK.json`` and its files."""
-    bench = json.loads((root / "BENCHMARK.json").read_text())
-    cells = {w["name"]: w for w in bench["workloads"]}
+    """The cell ``workload`` of ``root/BENCHMARK.json`` and its files, all
+    under ``root/bench``: ``configs/``, ``traffic/``, ``limits/`` and the
+    configuration's model module in ``models/``."""
+    bench = root / "bench"
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    cells = {w["name"]: w for w in spec["workloads"]}
     if workload not in cells:
         raise SystemExit(f"unknown workload {workload!r}; known: "
                          f"{sorted(cells)}")
@@ -76,26 +129,28 @@ def load_cell(root: Path, workload: str) -> Cell:
     def applies(metric):
         return workload in metric.get("workloads", [workload])
 
+    conf = weights.load_config(bench, w["config"])
     return Cell(
         name=workload,
-        conf=weights.load_config(HERE, w["config"]),
-        mix=json.loads((HERE / "traffic" / f"{w['traffic']}.json")
+        conf=conf,
+        mix=json.loads((bench / "traffic" / f"{w['traffic']}.json")
                        .read_text()),
-        limits=json.loads((HERE / "limits" / f"{workload}.json")
+        limits=json.loads((bench / "limits" / f"{workload}.json")
                           .read_text()),
         chips=w["chips"],
-        end_to_end=[m for m in bench["end_to_end"] if applies(m)],
-        per_layer=[m for m in bench["per_layer"] if applies(m)])
+        end_to_end=[m for m in spec["end_to_end"] if applies(m)],
+        per_layer=[m for m in spec["per_layer"] if applies(m)],
+        models=load_models(bench, conf))
+
+
+def metric_module(name: str):
+    """The module ``metrics/<name>.py``."""
+    return load_module(HERE / "metrics" / f"{name}.py", "metric_")
 
 
 def reader(name: str):
     """The ``read(rec)`` function of ``metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return metric_module(name).read
 
 
 @dataclass
@@ -119,6 +174,8 @@ class Step:
     events: list = field(default_factory=list)    # (kind, start, end)
     prefill_ms: float | None = None
     decode_ms: float | None = None
+    spans: dict = field(default_factory=dict)     # spans.take() after it
+    launches: dict = field(default_factory=dict)  # per binding, if any
 
     @property
     def wall(self) -> float:
@@ -137,6 +194,7 @@ class Record:
     window_s: float           # window opening to the end of its last step
     window_steps: list        # every step that started in the window
     timeline: object = None   # devtrace.Timeline of the profiled steps
+    work: object = flops      # the model's counts (Models.work)
 
     @property
     def steps(self) -> list:
@@ -163,6 +221,7 @@ class Run:
         self.cur: Step | None = None
         self.eng = self.prof = None
         self.steps: list[Step] = []
+        self.rec: Record | None = None
         self.probes: dict[int, list] = {}
         self.hw: dict[int, int] = {}          # prompt high-water marks
         self._restore = []
@@ -171,7 +230,8 @@ class Run:
     def setup(self):
         """Weights, model, engine, kernels and the cell's shapes warmed."""
         self.model, self.w = weights.build(self.cell.conf, self.seed,
-                                           self.device, self.smoke)
+                                           self.device, self.smoke,
+                                           self.cell.models.STD)
         self.m = weights.model_section(self.cell.conf, self.smoke)
         self.vocab = self.m["vocab_size"]
         self.new_engine()
@@ -198,10 +258,43 @@ class Run:
         if self.fault is not None:
             self.fault(self)
 
+    def span_level(self, s: Step | None) -> int:
+        """The level of the program's spans over the step ``s`` (None:
+        a step outside the schedule, such as the warm-up's): the engine's
+        on a traced run's window steps outside the profiler, else off."""
+        from repro_torch.metrics import spans
+        if self.trace and s is not None and s.window and not s.profiled:
+            return spans.CLOCK
+        return spans.OFF
+
     def _wrap(self, eng_mod, pred):
+        from repro_torch.kernels import build
+        from repro_torch.metrics import spans
         rf = (torch.profiler.record_function if self.trace
               else lambda name: contextlib.nullcontext())
         eng = self.eng
+        step = eng.step
+
+        def stepped():
+            s = self.cur
+            level = self.span_level(s)
+            before = dict(build.launches)
+            if level:
+                spans.take()
+                spans.set_level(level)
+            try:
+                return step()
+            finally:
+                if level:
+                    spans.set_level(spans.OFF)
+                    got = spans.take()
+                if s is not None:
+                    if level:
+                        s.spans = got
+                    s.launches = {k: n - before[k] for k, n in
+                                  build.launches.items() if n != before[k]}
+
+        eng.step = stepped
         dstep = eng._device_step
         chunk_cap = eng.ecfg.prefill_chunk
 
@@ -433,7 +526,8 @@ class Run:
 
     # -- after the window -------------------------------------------------
     def record(self) -> Record:
-        """The run's record, with the CUDA event spans read."""
+        """The run's record (kept as ``rec``), with the CUDA event spans
+        read."""
         for s in self.steps:
             for kind, e0, e1 in s.events:
                 ms = e0.elapsed_time(e1)
@@ -452,9 +546,10 @@ class Run:
         w0 = gen.phase_spans(self.mix, self.seconds)["window"][0]
         window_s = (max(s.end for s in win) - w0) if win else 0.0
         timeline = devtrace.Timeline(self.prof) if self.prof else None
-        return Record(setup_s=self.setup_s, model=self.m, requests=reqs,
-                      window_s=window_s, window_steps=win,
-                      timeline=timeline)
+        self.rec = Record(setup_s=self.setup_s, model=self.m, requests=reqs,
+                          window_s=window_s, window_steps=win,
+                          timeline=timeline, work=self.cell.models.work)
+        return self.rec
 
     def release(self):
         """Free the program's state (the engine and its caches); the
@@ -496,7 +591,8 @@ class Run:
                   "rows_left_out": {"value": self.left_out, "limit": 0}}
         seen = {"requests": 0, "tokens": 0, "probes": 0}
         if sample:
-            got = check.compare(self.m, self.w.views, sample, self.probes)
+            got = check.compare(self.cell.models.Reference, self.m,
+                                self.w.views, sample, self.probes)
             seen = {k: got[k] for k in seen}
             for name, lim in self.cell.limits.items():
                 checks[name] = {"value": got[name], "limit": lim["limit"]}

@@ -15,7 +15,7 @@ def read(rec):
     busy = tl.kernel_s(KERNELS)
     if not busy:
         return None
-    nbytes = sum(flops.decode_attn_bytes(rec.model, keys + t)
+    nbytes = sum(rec.work.decode_attn_bytes(rec.model, keys + t)
                  for s in rec.traced for keys, n in s.decode
                  for t in range(n))
     return 100.0 * (nbytes / flops.HBM_BW) / busy

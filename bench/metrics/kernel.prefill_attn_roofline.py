@@ -19,8 +19,8 @@ def read(rec):
     for s in rec.traced:
         if not s.prefill:
             continue
-        work = [flops.prefill_attn_work(rec.model, st, n)
+        work = [rec.work.prefill_attn_work(rec.model, st, n)
                 for st, n in s.prefill]
-        bound += rec.model["num_layers"] * flops.bound_s(
+        bound += rec.work.attn_layers(rec.model) * flops.bound_s(
             sum(f for f, _ in work), sum(b for _, b in work))
     return 100.0 * bound / busy

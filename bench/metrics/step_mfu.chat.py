@@ -11,6 +11,6 @@ def read(rec):
     wall = sum(s.wall for s in rec.steps)
     if wall <= 0:
         return None
-    work = sum(flops.step_flops(rec.model, s.prefill, s.decode)
+    work = sum(rec.work.step_flops(rec.model, s.prefill, s.decode)
                for s in rec.steps)
     return 100.0 * work / (wall * flops.PEAK_FLOPS)

@@ -20,6 +20,10 @@ float8 e4m3 with a scale per row, the step below bfloat16.
 
 Matmuls run in float32 with TF32 off. Work goes layer by layer over all
 sequences at once, each layer's weights cast to float32 once.
+
+Another architecture subclasses it in a configuration's model module
+(``models/<name>.py``) and overrides the pieces that differ: ``_embed``,
+``_layer`` (one layer of the trunk), ``_logits``, or those below them.
 """
 
 from __future__ import annotations
@@ -137,7 +141,40 @@ class Reference:
             out.index_add_(0, tok, y * top_p[tok, slot][:, None])
         return out
 
+    def _self_attention(self, hn, pre: str, pos, lens):
+        """A layer's attention over its normed input, projected out."""
+        m = self.m
+        H, KH, hd = m["num_heads"], m["num_kv_heads"], m["head_dim"]
+        q = self._mm(hn, self._weight(pre + "wq")).view(-1, H, hd)
+        k = self._mm(hn, self._weight(pre + "wk")).view(-1, KH, hd)
+        v = self._mm(hn, self._weight(pre + "wv")).view(-1, KH, hd)
+        q, k = self._rope(q, pos), self._rope(k, pos)
+        att = torch.cat([self._attention(qs, ks, vs) for qs, ks, vs in
+                         zip(q.split(lens), k.split(lens), v.split(lens))])
+        return self._mm(att.reshape(-1, H * hd), self._weight(pre + "wo"))
+
     # -- the pass -------------------------------------------------------
+    def _embed(self, ids):
+        """The hidden states of the token ids entering layer 0."""
+        return self.w["embed"].float()[ids]
+
+    def _layer(self, li: int, x, pos, lens):
+        """Layer ``li`` over the hidden states x (every sequence, one after
+        another; ``pos`` each position's, ``lens`` each sequence's length):
+        attention, then the MLP or the MoE, each pre-normed."""
+        pre = f"layers.{li}."
+        x = x + self._self_attention(self._norm(x, pre + "norm1"), pre, pos,
+                                     lens)
+        hn = self._norm(x, pre + "norm2")
+        return x + (self._moe(hn, pre) if self.m.get("num_experts")
+                    else self._mlp(hn, pre))
+
+    def _logits(self, xs):
+        """Logits over the vocabulary of final hidden states."""
+        w = self.w
+        table = w["embed"] if self.m["tie_embeddings"] else w["unembed"]
+        return self._act(self._norm(xs, "final_norm")) @ table.float().T
+
     @torch.no_grad()
     def run(self, seqs: list[list[int]], logits_from: list[int],
             tap_at: list[list[int]]):
@@ -157,31 +194,15 @@ class Reference:
         ids = torch.tensor([t for s in seqs for t in s], dtype=torch.long,
                            device=dev)
         pos = torch.cat([torch.arange(n, device=dev) for n in lens])
-        x = w["embed"].float()[ids]
-        H, KH, hd = m["num_heads"], m["num_kv_heads"], m["head_dim"]
+        x = self._embed(ids)
         taps = None
         for li in range(m["num_layers"]):
-            pre = f"layers.{li}."
-            hn = self._norm(x, pre + "norm1")
-            q = self._mm(hn, self._weight(pre + "wq")).view(-1, H, hd)
-            k = self._mm(hn, self._weight(pre + "wk")).view(-1, KH, hd)
-            v = self._mm(hn, self._weight(pre + "wv")).view(-1, KH, hd)
-            q, k = self._rope(q, pos), self._rope(k, pos)
-            att = torch.cat([self._attention(qs, ks, vs) for qs, ks, vs in
-                             zip(q.split(lens), k.split(lens),
-                                 v.split(lens))])
-            x = x + self._mm(att.reshape(-1, H * hd),
-                             self._weight(pre + "wo"))
-            hn = self._norm(x, pre + "norm2")
-            x = x + (self._moe(hn, pre) if m.get("num_experts")
-                     else self._mlp(hn, pre))
+            x = self._layer(li, x, pos, lens)
             if li == m["probe"]["tap_layer"]:
                 taps = x
-        table = w["embed"] if m["tie_embeddings"] else w["unembed"]
         out = []
         for i, (xs, ts) in enumerate(zip(x.split(lens), taps.split(lens))):
-            hn = self._norm(xs[logits_from[i]:], "final_norm")
-            logits = self._act(hn) @ table.float().T
+            logits = self._logits(xs[logits_from[i]:])
             t = self._act(ts[tap_at[i]])
             h = torch.relu(t @ w["probe.w1"].float() + w["probe.b1"].float())
             post = torch.softmax(h @ w["probe.w2"].float() +

@@ -30,10 +30,7 @@ import harness
 import stats
 
 
-def labels() -> tuple:
-    """Every labelled host range: the harness's and the program's."""
-    from repro_torch.metrics import spans
-    return devtrace.LABELS + spans.NAMES
+labels = devtrace.labels
 
 
 def _events(prof):
@@ -116,18 +113,10 @@ class SpanTimeline(devtrace.Timeline):
 
 
 # -- the metrics the spans give ------------------------------------------
+# Three are the benchmark's own readers (``metrics/``), which a traced run
+# of ``run.py`` reports too.
 #: the device calls and the waits for their outputs inside engine.step
-DEVICE_PARTS = ("engine.prefill", "engine.decode", "engine.fetch")
-
-
-def decode_host_ms_per_megastep(rec):
-    """Host ms the program's engine.decode span takes (the enqueue of a
-    decode megastep, which makes no sync), mean over the window's
-    unprofiled megasteps."""
-    got = [s.spans["engine.decode"] for s in rec.steps
-           if "engine.decode" in s.spans]
-    n = sum(g["count"] for g in got)
-    return 1e-6 * sum(g["total_ns"] for g in got) / n if n else None
+DEVICE_PARTS = harness.metric_module("engine.host_ms_per_step").DEVICE_PARTS
 
 
 def launches_per_megastep(rec):
@@ -140,31 +129,6 @@ def launches_per_megastep(rec):
         return None
     names, n = tl.launched_in("engine.decode")
     return len(names) / n if n else None
-
-
-def fetch_wait_ms_per_step(rec):
-    """Host ms in engine.fetch (each ``.cpu()`` of the device's outputs:
-    the host waiting on the device), mean over the window's unprofiled
-    steps."""
-    steps = [s for s in rec.steps if "engine.step" in s.spans]
-    if not steps:
-        return None
-    return 1e-6 * sum(s.spans.get("engine.fetch", {}).get("total_ns", 0)
-                      for s in steps) / len(steps)
-
-
-def host_ms_per_step(rec):
-    """Host ms of each step with nothing of the step's own on the device:
-    engine.step less the engine.prefill, engine.decode and engine.fetch
-    inside it, mean over the window's unprofiled steps."""
-    steps = [s for s in rec.steps if "engine.step" in s.spans]
-    if not steps:
-        return None
-    ns = sum(s.spans["engine.step"]["total_ns"]
-             - sum(s.spans.get(p, {}).get("total_ns", 0)
-                   for p in DEVICE_PARTS)
-             for s in steps)
-    return 1e-6 * ns / len(steps)
 
 
 def queue_wait_p90_s(rec):
@@ -180,10 +144,13 @@ def queue_wait_p90_s(rec):
 
 #: name, unit and reader of each metric the spans give
 READERS = (
-    ("model.decode_host_ms_per_megastep", "ms", decode_host_ms_per_megastep),
+    ("model.decode_host_ms_per_megastep", "ms",
+     harness.reader("model.decode_host_ms_per_megastep")),
     ("model.launches_per_megastep", "launches", launches_per_megastep),
-    ("engine.fetch_wait_ms_per_step", "ms", fetch_wait_ms_per_step),
-    ("engine.host_ms_per_step", "ms", host_ms_per_step),
+    ("engine.fetch_wait_ms_per_step", "ms",
+     harness.reader("engine.fetch_wait_ms_per_step")),
+    ("engine.host_ms_per_step", "ms",
+     harness.reader("engine.host_ms_per_step")),
     ("sched.queue_wait_p90_s", "s", queue_wait_p90_s),
 )
 
@@ -192,9 +159,9 @@ class SpanRun(harness.Run):
     """A traced ``harness.Run`` with the program's spans switched on around
     each ``Engine.step``: ``CLOCK`` on every step, ``DETAIL`` on the
     profiled ones. Each step keeps the totals its spans took
-    (``Step.spans``) and, profiled, the launches the paged attention
-    binding counted (``Step.attn_launches``); the record keeps each
-    measured request's wait for admission (``Record.waits``)."""
+    (``Step.spans``) and the launches each binding counted
+    (``Step.launches``), as in every run; the record keeps each measured
+    request's wait for admission (``Record.waits``)."""
 
     def __init__(self, cell, seed: int, seconds: float, t_start: float,
                  **kw):
@@ -202,35 +169,19 @@ class SpanRun(harness.Run):
         super().__init__(cell, seed, seconds, True, t_start, **kw)
         self.sp = spans
         self.offset_ns = None
-        self.rec = None
 
     def new_engine(self):
-        from repro_torch.kernels import build
         from repro_torch.metrics import EventLog
         super().new_engine()
-        eng, sp = self.eng, self.sp
-        eng.events = EventLog()
-        step = eng.step
+        self.eng.events = EventLog()
 
-        def spanned():
-            s = self.cur
-            profiled = s is not None and s.profiled
-            if profiled and self.offset_ns is None:
+    def span_level(self, s) -> int:
+        sp = self.sp
+        if s is not None and s.profiled:
+            if self.offset_ns is None:
                 self.offset_ns = sp.clock_offset_ns()
-            a0 = build.launches["paged_decode_attention"]
-            sp.take()
-            sp.set_level(sp.DETAIL if profiled else sp.CLOCK)
-            try:
-                return step()
-            finally:
-                sp.set_level(sp.OFF)
-                got = sp.take()
-                if s is not None:
-                    s.spans = got
-                    s.attn_launches = (build.launches[
-                        "paged_decode_attention"] - a0)
-
-        eng.step = spanned
+            return sp.DETAIL
+        return sp.CLOCK
 
     def record(self):
         prof, self.prof = self.prof, None   # the timeline is built below
@@ -238,7 +189,6 @@ class SpanRun(harness.Run):
         self.prof = prof
         rec.timeline = SpanTimeline(prof) if prof is not None else None
         rec.waits = self._waits()
-        self.rec = rec
         return rec
 
     def _waits(self) -> list:
@@ -304,7 +254,8 @@ class SpanRun(harness.Run):
             names, _ = tl.launched_in("engine.decode")
             out["decode_kernel_launches"] = {
                 "trace": sum("decode_kernel" in n for n in names),
-                "binding": sum(s.attn_launches for s in traced)}
+                "binding": sum(s.launches.get("paged_decode_attention", 0)
+                               for s in traced)}
         if tl is not None:
             gaps = dict(tl.idle_gaps(k=10**6))
             idle = sum(gaps.values())

@@ -57,25 +57,38 @@ def model_section(conf: dict, smoke: bool = False) -> dict:
     return m
 
 
+def frozen(v):
+    """A JSON value with its lists made tuples, at every depth."""
+    if isinstance(v, list):
+        return tuple(frozen(x) for x in v)
+    if isinstance(v, dict):
+        return {k: frozen(x) for k, x in v.items()}
+    return v
+
+
 def model_config(name: str, m: dict):
-    """The port's ``ModelConfig`` for a model section."""
+    """The port's ``ModelConfig`` for a model section; its lists (say
+    ``layer_kinds``) become tuples, so that the frozen config hashes."""
     from repro_torch.config import ModelConfig, ProbeConfig
-    kw = {k: v for k, v in m.items() if k != "probe"}
-    return ModelConfig(name=name, probe=ProbeConfig(**m["probe"]), **kw)
+    kw = {k: frozen(v) for k, v in m.items() if k != "probe"}
+    return ModelConfig(name=name, probe=ProbeConfig(**frozen(m["probe"])),
+                       **kw)
 
 
 class Weights:
-    """Flat per-dtype buffers and the views of every leaf, by name."""
+    """Flat per-dtype buffers and the views of every leaf, by name; ``std``
+    maps a leaf's last name part to its standard deviation."""
 
-    def __init__(self, model: torch.nn.Module, m: dict, device):
+    def __init__(self, model: torch.nn.Module, m: dict, device,
+                 std: dict = STD):
         self.m = m
         self.device = torch.device(device)
         groups: dict[torch.dtype, list] = {}
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf not in STD:
+            if leaf not in std:
                 raise KeyError(f"no standard deviation for leaf {name!r}")
-            groups.setdefault(p.dtype, []).append((STD[leaf](m), name, p))
+            groups.setdefault(p.dtype, []).append((std[leaf](m), name, p))
         self.flat: dict[torch.dtype, torch.Tensor] = {}
         self.spans: dict[torch.dtype, list] = {}   # (std, start, end)
         self.views: dict[str, torch.Tensor] = {}
@@ -83,13 +96,13 @@ class Weights:
             leaves.sort(key=lambda x: (x[0], x[1]))
             off, spans = 0, []
             layout = []
-            for std, name, p in leaves:
+            for sd, name, p in leaves:
                 off = -(-off // ALIGN) * ALIGN
                 layout.append((name, p.shape, off))
-                if spans and spans[-1][0] == std:
+                if spans and spans[-1][0] == sd:
                     spans[-1][2] = off + p.numel()
                 else:
-                    spans.append([std, off, off + p.numel()])
+                    spans.append([sd, off, off + p.numel()])
                 off += p.numel()
             flat = torch.empty(off, dtype=dt, device=self.device)
             self.flat[dt], self.spans[dt] = flat, spans
@@ -117,14 +130,15 @@ class Weights:
                 flat[a:b].mul_(std)
 
 
-def build(conf: dict, seed: int, device, smoke: bool = False):
+def build(conf: dict, seed: int, device, smoke: bool = False,
+          std: dict = STD):
     """(the port's Model, its Weights) for a configuration file, with the
-    weights drawn from ``seed`` on ``device``."""
+    weights drawn from ``seed`` on ``device`` at the scales ``std``."""
     from repro_torch.models.model import Model
     m = model_section(conf, smoke)
     cfg = model_config(conf["name"], m)
     model = Model(cfg, device="meta")
-    w = Weights(model, m, device)
+    w = Weights(model, m, device, std)
     model.device = torch.device(device)
     w.draw(seed)
     return model, w
