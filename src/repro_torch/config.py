@@ -4,7 +4,10 @@ A single :class:`ModelConfig` dataclass describes every architecture in the
 assigned pool (dense GQA, MoE, SSM, hybrid, encoder-decoder, VLM). The port
 keeps its own copy so that it imports nothing of the reference package;
 configs load from ``repro_torch/configs``. The port's model runs every
-layer kind, the encoder-decoder, prefix embeds and ``kv_quant``.
+layer kind, the encoder-decoder, prefix embeds and ``kv_quant``. Beyond
+the reference it has the Mamba-2-then-MoE kind (``KIND_SSM_MOE``), a
+shared expert, NoPE attention with a set score scale and Granite's muP
+multipliers (granite-4.0-h-small); each default leaves a model as it was.
 
 Layer heterogeneity (gemma-style local:global alternation, hybrid stacks) is
 expressed with ``layer_kinds`` — a tuple of per-layer kind strings, which the
@@ -24,8 +27,14 @@ KIND_LOCAL = "local"      # sliding-window causal self-attention + MLP
 KIND_SSM = "ssm"          # Mamba2 SSD block (no MLP; block includes gating)
 KIND_MOE = "moe"          # attention + mixture-of-experts MLP
 KIND_HYBRID = "hybrid"    # Hymba-style parallel attention + SSM heads + MLP
+KIND_SSM_MOE = "ssm_moe"  # Mamba2 SSD mixer, then a mixture-of-experts MLP
 
-VALID_KINDS = (KIND_ATTN, KIND_LOCAL, KIND_SSM, KIND_MOE, KIND_HYBRID)
+VALID_KINDS = (KIND_ATTN, KIND_LOCAL, KIND_SSM, KIND_MOE, KIND_HYBRID,
+               KIND_SSM_MOE)
+#: kinds that carry a Mamba2 mixer (fixed recurrent state per request)
+SSM_KINDS = (KIND_SSM, KIND_HYBRID, KIND_SSM_MOE)
+#: kinds whose feed-forward part is the mixture of experts
+MOE_KINDS = (KIND_MOE, KIND_SSM_MOE)
 
 # Architecture families (metadata; drives input stubs and shape skips).
 FAMILY_DENSE = "dense"
@@ -92,11 +101,16 @@ class ModelConfig:
     final_logit_softcap: float = 0.0    # gemma2: 30.0
     rope_theta: float = 10000.0
     use_rope: bool = True
+    learned_pos: bool = True            # without RoPE: learned positions
+                                        # (whisper); False is NoPE
+    attn_scale: float = 0.0             # score scale; 0 -> head_dim**-0.5
 
     # -- MoE ----------------------------------------------------------------
     num_experts: int = 0
     experts_per_token: int = 0
     moe_dense_residual: bool = False    # arctic: dense MLP in parallel w/ MoE
+    shared_expert_ff: int = 0           # granite-4.0-h: a shared expert of
+                                        # this width beside the routed ones
     router_aux_weight: float = 0.01     # load-balance loss weight
     capacity_factor: float = 1.25       # static-shape expert capacity
 
@@ -123,6 +137,11 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     embed_scale: bool = False           # gemma-style sqrt(d_model) scaling
+
+    # -- Granite muP multipliers (1.0: off) -----------------------------------
+    embed_multiplier: float = 1.0       # token embeddings times this
+    residual_multiplier: float = 1.0    # each residual branch times this
+    logit_divisor: float = 1.0          # logits divided by this
 
     # -- training -----------------------------------------------------------
     remat: bool = True
@@ -172,14 +191,26 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     @property
+    def learned_positions(self) -> bool:
+        """True when learned position rows are added to the embeddings
+        (no RoPE, and not NoPE)."""
+        return not self.use_rope and self.learned_pos
+
+    @property
+    def score_scale(self) -> float:
+        """The attention score scale: ``attn_scale``, else head_dim**-0.5."""
+        return self.attn_scale or self.head_dim ** -0.5
+
+    @property
     def is_attention_free(self) -> bool:
         """True when every layer is an SSM block (no KV cache at all)."""
-        return all(k == KIND_SSM for k in self.layer_kinds)
+        return all(k in (KIND_SSM, KIND_SSM_MOE) for k in self.layer_kinds)
 
     @property
     def sub_quadratic(self) -> bool:
         """True if no layer needs an unbounded full-attention KV cache."""
-        return all(k in (KIND_SSM, KIND_LOCAL) for k in self.layer_kinds)
+        return all(k in (KIND_SSM, KIND_SSM_MOE, KIND_LOCAL)
+                   for k in self.layer_kinds)
 
     @property
     def has_global_attention(self) -> bool:
@@ -242,11 +273,14 @@ class ModelConfig:
         mlp = 3 * d * ff  # gated (gate/up/down)
         if kind == KIND_SSM:
             return self._ssm_params()
-        if kind == KIND_MOE:
+        if kind in MOE_KINDS:
             ne = self.experts_per_token if active else self.num_experts
             moe = ne * 3 * d * ff + d * self.num_experts
             if self.moe_dense_residual:
                 moe += 3 * d * ff
+            moe += 3 * d * self.shared_expert_ff
+            if kind == KIND_SSM_MOE:
+                return self._ssm_params() + moe
             return attn + moe
         if kind == KIND_HYBRID:
             return attn + self._ssm_params() + mlp
@@ -273,7 +307,9 @@ ARCH_IDS = (
     "gemma2-9b", "olmoe-1b-7b",
 )
 
-_EXTRA_IDS = ("trail-llama",)   # the paper's own serving model (reduced scale)
+# the paper's own serving model (reduced scale), and models the port serves
+# that the reference package has no config for
+_EXTRA_IDS = ("trail-llama", "granite-4.0-h-small")
 
 
 def _module_name(arch: str) -> str:

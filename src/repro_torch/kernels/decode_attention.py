@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import score_scale
 
 _HEAD_DIMS = (32, 64, 128, 256)
 #: token rows (B * M) the kernel can index: it computes b * M + n in an int
@@ -58,10 +59,12 @@ def _check_scales(k, k_scale, v_scale):
 
 
 def decode_attention(q, k, v, kpos, q_pos, *, window: int = 0,
-                     softcap: float = 0.0, k_scale=None, v_scale=None):
+                     softcap: float = 0.0, k_scale=None, v_scale=None,
+                     scale: float | None = None):
     """Launch the kernel. q: (B,H,hd); k/v: (B,M,KH,hd) in q's dtype, or
     int8 with k_scale/v_scale (B,M,KH) float32; kpos: (B,M) int32; q_pos:
-    (B,) int32 -> (B,H,hd) in q's dtype."""
+    (B,) int32 -> (B,H,hd) in q's dtype; scores scaled by ``scale``
+    (None: hd**-0.5)."""
     build.check_on_card(q.device, q=q, k=k, v=v)
     # kpos and q_pos are read one int at a time: a layer's kpos row of a
     # stacked cache may start 4 bytes past a 16-byte boundary
@@ -99,7 +102,8 @@ def decode_attention(q, k, v, kpos, q_pos, *, window: int = 0,
     out = torch.empty_like(q)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    sizes = (build.DTYPE_CODE[q.dtype], B, H, KH, hd, M, hd ** -0.5,
+    sizes = (build.DTYPE_CODE[q.dtype], B, H, KH, hd, M,
+             score_scale(scale, hd),
              int(window), float(softcap), stream)
     if int8:
         name = "decode_attention_int8"

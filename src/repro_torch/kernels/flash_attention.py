@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import score_scale
 
 _HEAD_DIMS = (32, 64, 128, 256)
 _lib = None
@@ -42,9 +43,9 @@ def _library():
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
+                    softcap: float = 0.0, scale: float | None = None):
     """Launch the kernel. q: (B,S,H,hd); k/v: (B,S,KH,hd) -> (B,S,H,hd) in
-    q's dtype."""
+    q's dtype; scores scaled by ``scale`` (None: hd**-0.5)."""
     build.check_on_card(q.device, q=q, k=k, v=v)
     if q.dtype not in build.DTYPE_CODE:
         raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16)")
@@ -67,7 +68,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        build.DTYPE_CODE[q.dtype], B, S, H, KH, hd, hd ** -0.5, int(causal),
+        build.DTYPE_CODE[q.dtype], B, S, H, KH, hd,
+        score_scale(scale, hd), int(causal),
         int(window), float(softcap), stream)
     build.raise_on(err, "flash_attention")
     build.launches["flash_attention"] += 1

@@ -54,46 +54,47 @@ def _plain(fn, *args, **kwargs):
 
 
 def decode_attention(q, k, v, kpos, q_pos, *, window=0, softcap=0.0,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, scale=None):
     """Single-step decode attention against a contiguous or ring slot
     cache; an int8 cache comes with its per-(slot, KV head) float32
-    scales ``k_scale``/``v_scale``."""
+    scales ``k_scale``/``v_scale``. Each attention wrapper takes the
+    score ``scale`` (None: head_dim**-0.5)."""
     if q.device.type in _PLAIN_DEVICES:
         return _plain(ref.decode_attention_ref, q, k, v, kpos, q_pos,
                       window=window, softcap=softcap, k_scale=k_scale,
-                      v_scale=v_scale)
+                      v_scale=v_scale, scale=scale)
     with detail("kernel.decode_attention_int8" if k.dtype == torch.int8
                 else "kernel.decode_attention"):
         return _dec.decode_attention(q, k, v, kpos, q_pos, window=window,
                                      softcap=softcap, k_scale=k_scale,
-                                     v_scale=v_scale)
+                                     v_scale=v_scale, scale=scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
-                           q_pos, *, window=0, softcap=0.0):
+                           q_pos, *, window=0, softcap=0.0, scale=None):
     """Single-step decode attention against a paged KV cache."""
     if q.device.type in _PLAIN_DEVICES:
         return _plain(ref.paged_decode_attention_ref, q, k_pages, v_pages,
                       kpos_pages, block_table, q_pos, window=window,
-                      softcap=softcap)
+                      softcap=softcap, scale=scale)
     with detail("kernel.paged_decode_attention"):
         return _paged.paged_decode_attention(
             q, k_pages, v_pages, kpos_pages, block_table, q_pos,
-            window=window, softcap=softcap)
+            window=window, softcap=softcap, scale=scale)
 
 
 def paged_decode_attention_multi(q, k_pages, v_pages, kpos_pages,
                                  block_table, q_pos, *, window=0,
-                                 softcap=0.0):
+                                 softcap=0.0, scale=None):
     """Multi-query decode attention against a paged KV cache."""
     if q.device.type in _PLAIN_DEVICES:
         return _plain(ref.paged_decode_attention_multi_ref, q, k_pages,
                       v_pages, kpos_pages, block_table, q_pos, window=window,
-                      softcap=softcap)
+                      softcap=softcap, scale=scale)
     with detail("kernel.paged_decode_attention_multi"):
         return _paged.paged_decode_attention_multi(
             q, k_pages, v_pages, kpos_pages, block_table, q_pos,
-            window=window, softcap=softcap)
+            window=window, softcap=softcap, scale=scale)
 
 
 def probe_update(tap, w1, b1, w2, b2, q_prev, T):
@@ -105,15 +106,16 @@ def probe_update(tap, w1, b1, w2, b2, q_prev, T):
         return _probe.probe_update(tap, w1, b1, w2, b2, q_prev, T)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    scale=None):
     """Full-sequence attention (training and profiling forwards).
     q: (B,S,H,hd); k/v: (B,S,KH,hd) -> (B,S,H,hd) in q's dtype."""
     if q.device.type in _PLAIN_DEVICES:
         return _plain(ref.flash_attention_ref, q, k, v, causal=causal,
-                      window=window, softcap=softcap)
+                      window=window, softcap=softcap, scale=scale)
     with detail("kernel.flash_attention"):
         return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                      softcap=softcap)
+                                      softcap=softcap, scale=scale)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk):

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import score_scale
 
 _HEAD_DIMS = (32, 64, 128, 256)
 _lib = None
@@ -75,8 +76,10 @@ def _check(q, k_pages, v_pages, kpos_pages, block_table, q_pos, q_ndim):
 
 
 def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
-                           q_pos, *, window: int = 0, softcap: float = 0.0):
-    """Launch the single-query kernel. q: (B,H,hd) -> (B,H,hd) in q's dtype."""
+                           q_pos, *, window: int = 0, softcap: float = 0.0,
+                           scale: float | None = None):
+    """Launch the single-query kernel. q: (B,H,hd) -> (B,H,hd) in q's dtype;
+    scores scaled by ``scale`` (None: hd**-0.5)."""
     B, H, KH, hd, ps, pmax = _check(q, k_pages, v_pages, kpos_pages,
                                     block_table, q_pos, 3)
     if H // KH > 8:
@@ -88,7 +91,7 @@ def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         kpos_pages.data_ptr(), block_table.data_ptr(), q_pos.data_ptr(),
         out.data_ptr(), build.DTYPE_CODE[q.dtype], B, H, KH, hd, ps, pmax,
-        hd ** -0.5, int(window), float(softcap), stream)
+        score_scale(scale, hd), int(window), float(softcap), stream)
     build.raise_on(err, "paged_decode_attention")
     build.launches["paged_decode_attention"] += 1
     return out
@@ -96,7 +99,8 @@ def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
 
 def paged_decode_attention_multi(q, k_pages, v_pages, kpos_pages,
                                  block_table, q_pos, *, window: int = 0,
-                                 softcap: float = 0.0):
+                                 softcap: float = 0.0,
+                                 scale: float | None = None):
     """Launch the multi-query kernel. q: (B,T,H,hd); q_pos: (B,T)."""
     B, H, KH, hd, ps, pmax = _check(q, k_pages, v_pages, kpos_pages,
                                     block_table, q_pos, 4)
@@ -108,7 +112,7 @@ def paged_decode_attention_multi(q, k_pages, v_pages, kpos_pages,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         kpos_pages.data_ptr(), block_table.data_ptr(), q_pos.data_ptr(),
         out.data_ptr(), build.DTYPE_CODE[q.dtype], B, T, H, KH, hd, ps, pmax,
-        hd ** -0.5, int(window), float(softcap), stream)
+        score_scale(scale, hd), int(window), float(softcap), stream)
     build.raise_on(err, "paged_decode_attention_multi")
     build.launches["paged_decode_attention_multi"] += 1
     return out

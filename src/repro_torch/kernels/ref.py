@@ -26,6 +26,12 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap if cap else x
 
 
+def score_scale(scale: float | None, hd: int) -> float:
+    """The attention score scale: ``scale``, or hd^-0.5 where it is None
+    (here and in the kernels' bindings)."""
+    return hd ** -0.5 if scale is None else float(scale)
+
+
 def _masked_softmax(scores: torch.Tensor, vmask: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis in which a row with nothing valid (an
     inactive query, q_pos = -1) comes out as zeros, matching the kernels'
@@ -36,20 +42,21 @@ def _masked_softmax(scores: torch.Tensor, vmask: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0):
+                        softcap: float = 0.0, scale: float | None = None):
     """q: (B,S,H,hd); k/v: (B,S,KH,hd) -> (B,S,H,hd) in q's dtype.
 
     Dense-position attention over one sequence: key j is valid for the
     query at position i when j <= i (``causal``) and j > i - ``window``
-    (``window`` > 0). Scores are float32, scaled by hd^-0.5 and soft-capped
-    before the mask; masked keys get probability exactly 0. Only the S
-    real keys exist here, so none past the sequence ever counts (the
+    (``window`` > 0). Scores are float32, scaled by ``scale`` (None:
+    hd^-0.5) and soft-capped before the mask; masked keys get probability
+    exactly 0. Only the S real keys exist here, so none past the sequence ever counts (the
     reference's Pallas kernel lets its zero padding in when not causal).
     """
     B, S, H, hd = q.shape
     KH = k.shape[2]
     qg = q.reshape(B, S, KH, H // KH, hd).float()
-    scores = torch.einsum("bskgh,bmkh->bkgsm", qg, k.float()) * (hd ** -0.5)
+    scores = torch.einsum("bskgh,bmkh->bkgsm", qg, k.float()) * score_scale(
+        scale, hd)
     scores = _softcap(scores, softcap)
     pos = torch.arange(S, device=q.device)
     qi, ki = pos[:, None], pos[None, :]
@@ -72,7 +79,8 @@ def _deq(x, scale):
 
 
 def decode_attention_ref(q, k, v, kpos, q_pos, *, window: int = 0,
-                         softcap: float = 0.0, k_scale=None, v_scale=None):
+                         softcap: float = 0.0, k_scale=None, v_scale=None,
+                         scale: float | None = None):
     """q: (B,H,hd) one query/row; k/v: (B,M,KH,hd); kpos: (B,M); q_pos: (B,).
 
     k_scale/v_scale: (B,M,KH) float32 scales of an int8 cache (None for a
@@ -81,8 +89,8 @@ def decode_attention_ref(q, k, v, kpos, q_pos, *, window: int = 0,
     KH = k.shape[2]
     G = H // KH
     qg = q.reshape(B, KH, G, hd).float()
-    scores = torch.einsum("bkgh,bmkh->bkgm", qg, _deq(k, k_scale)) * (
-        hd ** -0.5)
+    scores = torch.einsum("bkgh,bmkh->bkgm", qg, _deq(k, k_scale)) * \
+        score_scale(scale, hd)
     scores = _softcap(scores, softcap)
     valid = (kpos >= 0) & (kpos <= q_pos[:, None])
     if window:
@@ -96,7 +104,8 @@ def decode_attention_ref(q, k, v, kpos, q_pos, *, window: int = 0,
 
 def paged_decode_attention_ref(q, k_pages, v_pages, kpos_pages, block_table,
                                q_pos, *, window: int = 0,
-                               softcap: float = 0.0):
+                               softcap: float = 0.0,
+                               scale: float | None = None):
     """q: (B,H,hd); k/v_pages: (P,ps,KH,hd) shared page pool; kpos_pages:
     (P,ps); block_table: (B,pmax) int32 (0 = null page, kpos -1); q_pos: (B,).
 
@@ -110,12 +119,13 @@ def paged_decode_attention_ref(q, k_pages, v_pages, kpos_pages, block_table,
     v = v_pages[bt].reshape(B, -1, KH, hd)
     kpos = kpos_pages[bt].reshape(B, -1)
     return decode_attention_ref(q, k, v, kpos, q_pos, window=window,
-                                softcap=softcap)
+                                softcap=softcap, scale=scale)
 
 
 def paged_decode_attention_multi_ref(q, k_pages, v_pages, kpos_pages,
                                      block_table, q_pos, *, window: int = 0,
-                                     softcap: float = 0.0):
+                                     softcap: float = 0.0,
+                                     scale: float | None = None):
     """q: (B,T,H,hd); q_pos: (B,T) (-1 = inactive query); pool args as in
     ``paged_decode_attention_ref``. All T queries attend over the gathered
     pages (position-mask causality); a query with nothing valid, such as
@@ -129,7 +139,8 @@ def paged_decode_attention_multi_ref(q, k_pages, v_pages, kpos_pages,
     v = v_pages[bt].reshape(B, -1, KH, hd)
     kpos = kpos_pages[bt].reshape(B, -1)
     qg = q.reshape(B, T, KH, G, hd).float()
-    scores = torch.einsum("btkgh,bmkh->bkgtm", qg, k.float()) * (hd ** -0.5)
+    scores = torch.einsum("btkgh,bmkh->bkgtm", qg, k.float()) * score_scale(
+        scale, hd)
     scores = _softcap(scores, softcap)
     valid = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= q_pos[:, :, None])
     if window:

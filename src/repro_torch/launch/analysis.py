@@ -31,7 +31,8 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass, field
 
-from repro_torch.config import KIND_LOCAL, KIND_SSM, InputShape, ModelConfig
+from repro_torch.config import (KIND_LOCAL, KIND_SSM, KIND_SSM_MOE,
+                                InputShape, ModelConfig)
 
 PEAK_FLOPS = 197e12
 HBM_BW = 819e9
@@ -171,7 +172,7 @@ def model_flops_estimate(cfg: ModelConfig, shape: InputShape) -> float:
 def _attn_flops_prefill(cfg: ModelConfig, S: int) -> float:
     f = 0.0
     for kind in cfg.layer_kinds:
-        if kind == KIND_SSM:
+        if kind in (KIND_SSM, KIND_SSM_MOE):
             f += 6.0 * cfg.ssm_expand * cfg.d_model * cfg.ssm_state * S
             continue
         eff = min(S, cfg.sliding_window) if kind == KIND_LOCAL else S
@@ -182,7 +183,7 @@ def _attn_flops_prefill(cfg: ModelConfig, S: int) -> float:
 def _attn_flops_decode(cfg: ModelConfig, ctx: int) -> float:
     f = 0.0
     for kind in cfg.layer_kinds:
-        if kind == KIND_SSM:
+        if kind in (KIND_SSM, KIND_SSM_MOE):
             f += 4.0 * cfg.ssm_expand * cfg.d_model * cfg.ssm_state
             continue
         eff = min(ctx, cfg.sliding_window) if kind == KIND_LOCAL else ctx

@@ -8,8 +8,9 @@ the steps that served it lie on the same clock.
 Two levels, set with `set_level`:
 
 * ``CLOCK``  — the engine's stages (``engine.*``), about ten spans a step,
-  and the capture of the decode megastep's CUDA graph
-  (``model.graph_capture``, rare), opened with `span`;
+  the capture of the decode megastep's CUDA graph
+  (``model.graph_capture``, rare) and each Mamba-2 mixer of a prefill
+  chunk (``model.ssm_prefill``), opened with `span`;
 * ``DETAIL`` — also the model's, the MoE layer's and the kernel
   bindings' (``model.*``, ``moe.*``, ``kernel.*``), opened with `detail`:
   hundreds a decode megastep, meant for the few steps a profiler records.
@@ -41,12 +42,13 @@ OFF, CLOCK, DETAIL = 0, 1, 2
 #: ``CLOCK``)
 ENGINE = ("engine.step", "engine.admit", "engine.schedule", "engine.pages",
           "engine.stage", "engine.prefill", "engine.decode", "engine.fetch",
-          "engine.tokens", "model.graph_capture")
+          "engine.tokens", "model.graph_capture", "model.ssm_prefill")
 #: the model's, the MoE layer's and each kernel binding's (`detail`, level
 #: ``DETAIL``); one ``kernel.<binding>`` per key of ``kernels.build.launches``
 DETAILED = ("model.decode_step", "model.embed", "model.attention",
-            "model.mlp", "model.head", "model.sample",
+            "model.ssm", "model.mlp", "model.head", "model.sample",
             "moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+            "moe.shared",
             "kernel.paged_decode_attention",
             "kernel.paged_decode_attention_multi", "kernel.decode_attention",
             "kernel.decode_attention_int8", "kernel.probe_update",

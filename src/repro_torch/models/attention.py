@@ -127,7 +127,7 @@ def _attend_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, window: int,
     KH = k.shape[2]
     qg = q.reshape(B, S, KH, H // KH, hd).float()
     valid = _mask(q_pos, k_pos, window, causal)
-    s = _scores(cfg, qg, k, hd ** -0.5).masked_fill_(~valid, NEG_INF)
+    s = _scores(cfg, qg, k, cfg.score_scale).masked_fill_(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = s.sub_(m).exp_().masked_fill_(~valid, 0.0)
     p.div_(p.sum(dim=-1, keepdim=True).clamp_min_(1e-30))
@@ -141,7 +141,7 @@ def _attend_dense_autograd(cfg: ModelConfig, q, k, v, q_pos, k_pos, *,
     KH = k.shape[2]
     qg = q.reshape(B, S, KH, H // KH, hd).float()
     valid = _mask(q_pos, k_pos, window, causal)
-    s = torch.einsum("bskgh,bmkh->bkgsm", qg, k.float()) * hd ** -0.5
+    s = torch.einsum("bskgh,bmkh->bkgsm", qg, k.float()) * cfg.score_scale
     if cfg.attn_logit_softcap:
         s = torch.tanh(s / cfg.attn_logit_softcap) * cfg.attn_logit_softcap
     s = s.masked_fill(~valid, NEG_INF)
@@ -165,7 +165,8 @@ def _attend_blocked(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, window: int,
     for c0 in range(0, M, block):
         kc, vc = k[:, c0:c0 + block], v[:, c0:c0 + block]
         valid = _mask(q_pos, k_pos[:, c0:c0 + block], window, causal)
-        s = _scores(cfg, qg, kc, hd ** -0.5).masked_fill_(~valid, NEG_INF)
+        s = _scores(cfg, qg, kc, cfg.score_scale).masked_fill_(~valid,
+                                                               NEG_INF)
         m_new = torch.maximum(m_run, s.amax(dim=-1))
         p = s.sub_(m_new[..., None]).exp_().masked_fill_(~valid, 0.0)
         alpha = torch.exp(m_run - m_new)
@@ -188,16 +189,18 @@ class FlashAttention(torch.autograd.Function):
     and saves q, k and v. The reference has no backward kernel (``jax.grad``
     differentiates its plain ``attend``), so the backward recomputes the
     plain version under autograd and returns its dq, dk and dv. ``causal``
-    (default on) is off for the whisper encoder's self-attention.
+    (default on) is off for the whisper encoder's self-attention; ``scale``
+    is the score scale (None: head_dim**-0.5).
     """
 
     @staticmethod
     def forward(ctx, q, k, v, window: int, softcap: float,
-                causal: bool = True):
+                causal: bool = True, scale: float | None = None):
         ctx.save_for_backward(q, k, v)
         ctx.window, ctx.softcap, ctx.causal = window, softcap, causal
+        ctx.scale = scale
         return ops.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, scale=scale)
 
     @staticmethod
     def backward(ctx, dout):
@@ -205,9 +208,10 @@ class FlashAttention(torch.autograd.Function):
         with torch.enable_grad():
             out = ref.flash_attention_ref(q, k, v, causal=ctx.causal,
                                           window=ctx.window,
-                                          softcap=ctx.softcap)
+                                          softcap=ctx.softcap,
+                                          scale=ctx.scale)
         dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def self_attention_full(cfg: ModelConfig, p, h, *, window: int = 0,
@@ -223,7 +227,8 @@ def self_attention_full(cfg: ModelConfig, p, h, *, window: int = 0,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                               window, cfg.attn_logit_softcap, causal)
+                               window, cfg.attn_logit_softcap, causal,
+                               cfg.score_scale)
     return out.reshape(B, S, cfg.q_dim) @ p.wo.to(h.dtype)
 
 
@@ -393,7 +398,7 @@ def self_attention_cached(cfg: ModelConfig, p, h, cache_l, q_pos, *,
             q[:, 0].contiguous(), cache_l["k"], cache_l["v"], cache_l["kpos"],
             q_pos[:, 0].contiguous(), window=window,
             softcap=cfg.attn_logit_softcap, k_scale=cache_l.get("k_scale"),
-            v_scale=cache_l.get("v_scale"))[:, None]
+            v_scale=cache_l.get("v_scale"), scale=cfg.score_scale)[:, None]
         return out.reshape(B, S, cfg.q_dim) @ p.wo.to(h.dtype), cache_l
     if "k_scale" in cache_l:
         k_cache = dequantize(cache_l["k"], cache_l["k_scale"]).to(k.dtype)
@@ -482,10 +487,11 @@ def self_attention_paged(cfg: ModelConfig, p, h, cache_l, q_pos, block_table):
         out = ops.paged_decode_attention(
             q[:, 0].contiguous(), cache_l["pk"], cache_l["pv"],
             cache_l["pkpos"], block_table, q_pos[:, 0].contiguous(),
-            softcap=cfg.attn_logit_softcap)[:, None]
+            softcap=cfg.attn_logit_softcap,
+            scale=cfg.score_scale)[:, None]
     else:
         out = ops.paged_decode_attention_multi(
             q.contiguous(), cache_l["pk"], cache_l["pv"], cache_l["pkpos"],
             block_table, q_pos.contiguous(),
-            softcap=cfg.attn_logit_softcap)
+            softcap=cfg.attn_logit_softcap, scale=cfg.score_scale)
     return out.reshape(B, S, cfg.q_dim) @ p.wo.to(h.dtype), cache_l

@@ -120,14 +120,30 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """Look up token rows and cast them to the compute dtype."""
-    h = table[tokens].to(cdtype(cfg))
+    """Look up token rows and cast them to the compute dtype; Granite's
+    ``embed_multiplier`` scales the rows before the cast (one rounding)."""
+    h = table[tokens]
+    if cfg.embed_multiplier != 1.0:
+        h = h * cfg.embed_multiplier
+    h = h.to(cdtype(cfg))
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     return h
 
 
 def unembed(cfg: ModelConfig, table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """h: (..., d) -> float32 logits (..., V) against the float32 table."""
+    """h: (..., d) -> float32 logits (..., V) against the float32 table,
+    divided by Granite's ``logit_divisor``."""
     logits = h.float() @ table.float().T
+    if cfg.logit_divisor != 1.0:
+        logits = logits / cfg.logit_divisor
     return softcap(logits, cfg.final_logit_softcap)
+
+
+def residual(cfg: ModelConfig, h: torch.Tensor,
+             y: torch.Tensor) -> torch.Tensor:
+    """h plus a residual branch y, times Granite's ``residual_multiplier``
+    in the same operation (one rounding, no launch of its own)."""
+    if cfg.residual_multiplier != 1.0:
+        return torch.add(h, y, alpha=cfg.residual_multiplier)
+    return h + y

@@ -26,8 +26,10 @@ The parameters live on the model, so no method takes them; training runs
 ``torch.func.functional_call`` with float32 masters in their place. The
 cache is updated in place and also returned. Global (``KIND_ATTN``),
 sliding-window (``KIND_LOCAL``), mixture-of-experts (``KIND_MOE``, with
-arctic's dense residual), Mamba-2 (``KIND_SSM``) and hybrid
-(``KIND_HYBRID``) stacks are ported, with learned positions, and the
+arctic's dense residual or granite-4.0-h's shared expert), Mamba-2
+(``KIND_SSM``), hybrid (``KIND_HYBRID``) and Mamba-2-then-MoE
+(``KIND_SSM_MOE``) stacks are ported, with RoPE, learned positions or
+none (NoPE), Granite's multipliers, and the
 encoder-decoder (whisper: LayerNorm, the biased GELU MLP, a non-causal
 encoder through the ``flash_attention`` kernel, cross-attention over its
 output, per-slot cross caches beside either KV layout), so every config
@@ -54,8 +56,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import (FAMILY_AUDIO, KIND_ATTN, KIND_HYBRID,
-                                KIND_MOE, KIND_SSM, ModelConfig)
+from repro_torch.config import (FAMILY_AUDIO, KIND_ATTN, KIND_SSM, MOE_KINDS,
+                                SSM_KINDS, ModelConfig)
 from repro_torch.core import predictor
 from repro_torch.metrics.spans import detail
 from repro_torch.models import attention as attn
@@ -125,7 +127,7 @@ class Model(nn.Module):
         self.embed = param(V, d, dtype=pd)
         if not cfg.tie_embeddings:
             self.unembed = param(V, d, dtype=pd)
-        if not cfg.use_rope:        # learned positions
+        if cfg.learned_positions:
             self.pos_embed = param(MAX_LEARNED_POS, d, dtype=pd)
         self.final_norm = param(d, dtype=pd)
         if cfg.family == FAMILY_AUDIO:
@@ -154,9 +156,9 @@ class Model(nn.Module):
         The distributions are the reference's (``model.py`` init): embedding
         and learned-position rows N(0, 0.02^2); projections N(0, 1/fan_in)
         with ``wo``, ``w_down`` and the SSM's ``out_proj`` at their own
-        fan-in, the experts' and the router's too; the SSM's ``conv_w``
-        N(0, 1/W), its ``D`` ones and its ``conv_b``, ``dt_bias``,
-        ``A_log`` and ``norm_scale`` zeros; zero RMSNorm gains, unit
+        fan-in, the experts', the shared expert's and the router's too;
+        the SSM's ``conv_w`` N(0, 1/W), its ``D`` ones and its ``conv_b``,
+        ``dt_bias``, ``A_log`` and ``norm_scale`` zeros; zero RMSNorm gains, unit
         LayerNorm gains; zero biases; probe weights N(0, 1/fan_in).
         """
         cfg = self.cfg
@@ -185,7 +187,7 @@ class Model(nn.Module):
 
         def block(pre, kind):
             yield from norm(pre + "norm1")
-            if kind in (KIND_SSM, KIND_HYBRID):
+            if kind in SSM_KINDS:
                 yield normal(pre + "in_proj", d ** -0.5)
                 yield normal(pre + "out_proj", d_in ** -0.5)
                 yield normal(pre + "conv_w", cfg.ssm_conv ** -0.5)
@@ -195,20 +197,27 @@ class Model(nn.Module):
             if kind == KIND_SSM:
                 return
             yield from norm(pre + "norm2")
-            mlp_in = [w for w in ("w_gate", "w_up") if pre + w in params]
-            for w in ("wq", "wk", "wv", *mlp_in):
+            proj_in = [w for w in ("wq", "wk", "wv", "w_gate", "w_up")
+                       if pre + w in params]
+            for w in proj_in:
                 yield normal(pre + w, d ** -0.5)
-            yield normal(pre + "wo", qd ** -0.5)
+            if pre + "wo" in params:
+                yield normal(pre + "wo", qd ** -0.5)
             if pre + "w_down" in params:
                 yield normal(pre + "w_down", ff ** -0.5)
             for b in ("bq", "bk", "bv", "b_up", "b_down"):
                 if pre + b in params:
                     yield zeros(pre + b)
-            if kind == KIND_MOE:
+            if kind in MOE_KINDS:
                 yield normal(pre + "moe_router", d ** -0.5)
                 yield normal(pre + "moe_w_gate", d ** -0.5)
                 yield normal(pre + "moe_w_up", d ** -0.5)
                 yield normal(pre + "moe_w_down", ff ** -0.5)
+            if pre + "shared_w_gate" in params:
+                yield normal(pre + "shared_w_gate", d ** -0.5)
+                yield normal(pre + "shared_w_up", d ** -0.5)
+                yield normal(pre + "shared_w_down",
+                             cfg.shared_expert_ff ** -0.5)
             if pre + "cross_wq" in params:
                 for w in ("wq", "wk", "wv"):
                     yield normal(pre + "cross_" + w, d ** -0.5)
@@ -221,7 +230,7 @@ class Model(nn.Module):
         yield normal("embed", 0.02)
         if not cfg.tie_embeddings:
             yield normal("unembed", 0.02)
-        if not cfg.use_rope:
+        if cfg.learned_positions:
             yield normal("pos_embed", 0.02)
         yield from norm("final_norm")
         for li, kind in enumerate(cfg.layer_kinds):
@@ -255,10 +264,10 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def _embed(self, tokens, positions):
         """Token rows in the compute dtype, plus the learned position rows
-        (positions clipped to the table) where the config has no RoPE."""
+        (positions clipped to the table) where the config has them."""
         with detail("model.embed"):
             h = embed_tokens(self.cfg, self.embed, tokens)
-            if not self.cfg.use_rope:
+            if self.cfg.learned_positions:
                 idx = positions.clamp(0, self.pos_embed.shape[0] - 1).long()
                 h = h + self.pos_embed[idx].to(h.dtype)
         return h

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.metrics.spans import detail
+from repro_torch.models.layers import gated_mlp
 
 
 def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -127,13 +128,25 @@ def moe_tokens(cfg: ModelConfig, p, hf: torch.Tensor):
         return combine(ye, slot, keep, sw, order, hf.shape[0]), aux
 
 
+def shared_expert(p, x: torch.Tensor) -> torch.Tensor:
+    """The shared expert (granite-4.0-h): a gated-SiLU MLP that every token
+    takes beside its routed experts, ``shared_w_gate``/``shared_w_up``
+    (d, ff_s) and ``shared_w_down`` (ff_s, d)."""
+    with detail("moe.shared"):
+        return gated_mlp(x, p.shared_w_gate, p.shared_w_up, p.shared_w_down)
+
+
 def moe_mlp(cfg: ModelConfig, p, h: torch.Tensor):
     """h: (B,S,d) -> (out (B,S,d), aux loss scalar). Capacity comes from all
     B * S routed tokens of the call, padded and inactive rows included, as
-    in the reference."""
+    in the reference. With ``cfg.shared_expert_ff`` the shared expert's
+    output is added to the routed experts'."""
     B, S, d = h.shape
     out, aux = moe_tokens(cfg, p, h.reshape(B * S, d))
-    return out.reshape(B, S, d), aux
+    out = out.reshape(B, S, d)
+    if cfg.shared_expert_ff:
+        out = out + shared_expert(p, h)
+    return out, aux
 
 
 def moe_mlp_dense(cfg: ModelConfig, p, h: torch.Tensor):

@@ -17,16 +17,18 @@ import torch
 from torch import nn
 
 from repro_torch.config import (FAMILY_AUDIO, KIND_ATTN, KIND_HYBRID,
-                                KIND_LOCAL, KIND_MOE, KIND_SSM, ModelConfig)
-from repro_torch.metrics.spans import detail
+                                KIND_LOCAL, KIND_MOE, KIND_SSM, KIND_SSM_MOE,
+                                MOE_KINDS, SSM_KINDS, ModelConfig)
+from repro_torch.metrics.spans import detail, span
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, cdtype, gated_mlp,
-                                       gelu_mlp, pdtype)
+                                       gelu_mlp, pdtype, residual)
 
 MAX_PATTERN = 8          # longest repeating block grouped as one run
-PORTED_KINDS = (KIND_ATTN, KIND_LOCAL, KIND_SSM, KIND_HYBRID, KIND_MOE)
+PORTED_KINDS = (KIND_ATTN, KIND_LOCAL, KIND_SSM, KIND_HYBRID, KIND_MOE,
+                KIND_SSM_MOE)
 CROSS_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
@@ -139,7 +141,11 @@ class Block(nn.Module):
     normed input as its windowed attention. A ``KIND_MOE`` block holds the
     router and the stacked experts (``moe_router``, ``moe_w_gate``,
     ``moe_w_up``, ``moe_w_down``) in place of the MLP, and beside them the
-    dense MLP under ``cfg.moe_dense_residual`` (arctic). The audio family
+    dense MLP under ``cfg.moe_dense_residual`` (arctic) or the shared
+    expert under ``cfg.shared_expert_ff`` (``shared_w_gate``,
+    ``shared_w_up``, ``shared_w_down``; granite-4.0-h). A
+    ``KIND_SSM_MOE`` block (granite-4.0-h) has a Mamba-2 mixer in place of
+    attention, then the MoE of a ``KIND_MOE`` block. The audio family
     (whisper) has LayerNorms (a ``<norm>_bias`` beside each scale) and the
     biased GELU MLP (``w_up``, ``b_up``, ``w_down``, ``b_down``); with
     ``cross`` a decoder block adds cross-attention over the encoder
@@ -175,24 +181,30 @@ class Block(nn.Module):
                     setattr(self, prefix + name, param(n, dtype=cd))
 
         norm("norm1")
-        projections("")
+        if kind != KIND_SSM_MOE:
+            projections("")
         norm("norm2")
-        if kind == KIND_MOE:
+        if kind in MOE_KINDS:
             E = cfg.num_experts
             self.moe_router = param(d, E, dtype=pd)
             self.moe_w_gate = param(E, d, ff, dtype=cd)
             self.moe_w_up = param(E, d, ff, dtype=cd)
             self.moe_w_down = param(E, ff, d, dtype=cd)
+            if cfg.shared_expert_ff:
+                sf = cfg.shared_expert_ff
+                self.shared_w_gate = param(d, sf, dtype=cd)
+                self.shared_w_up = param(d, sf, dtype=cd)
+                self.shared_w_down = param(sf, d, dtype=cd)
         if audio:
             self.w_up = param(d, ff, dtype=cd)
             self.b_up = param(ff, dtype=cd)
             self.w_down = param(ff, d, dtype=cd)
             self.b_down = param(d, dtype=cd)
-        elif kind != KIND_MOE or cfg.moe_dense_residual:
+        elif kind not in MOE_KINDS or cfg.moe_dense_residual:
             self.w_gate = param(d, ff, dtype=cd)
             self.w_up = param(d, ff, dtype=cd)
             self.w_down = param(ff, d, dtype=cd)
-        if kind == KIND_HYBRID:
+        if kind in (KIND_HYBRID, KIND_SSM_MOE):
             _add_ssm_params(self, cfg, device)
         if cross:
             projections("cross_")
@@ -234,12 +246,13 @@ def cross_weights(p):
 
 
 def _mlp_part(cfg: ModelConfig, kind: str, p, h):
-    """Post-attention feed-forward: the dense MLP, or the MoE (plus the
-    dense MLP on the same normed input under ``moe_dense_residual``).
-    Returns (delta, router aux loss; the number 0 without MoE, so that
-    the cached path, which drops it, launches nothing for it)."""
+    """Post-attention feed-forward: the dense MLP, or the MoE (with the
+    shared expert under ``shared_expert_ff``; plus the dense MLP on the
+    same normed input under ``moe_dense_residual``). Returns (delta, router
+    aux loss; the number 0 without MoE, so that the cached path, which
+    drops it, launches nothing for it)."""
     hn = norm(cfg, p, "norm2", h)
-    if kind == KIND_MOE:
+    if kind in MOE_KINDS:
         y, aux = moe_mod.moe_mlp(cfg, p, hn)
         if cfg.moe_dense_residual:
             y = y + mlp(cfg, p, hn)
@@ -255,36 +268,45 @@ def block_train(cfg: ModelConfig, kind: str, p, h, enc_out=None,
     given and the block has it, then the MLP or MoE; an SSM block is the
     mixer alone. h: (B,S,d) -> (h, router aux loss). ``causal`` is off in
     the whisper encoder's blocks. ``p`` is a block or any object holding
-    its weights as attributes."""
+    its weights as attributes. Each residual branch is scaled by
+    ``cfg.residual_multiplier`` (``layers.residual``)."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     hn = norm(cfg, p, "norm1", h)
     if kind == KIND_SSM:
-        return h + ssm_mod.ssm_forward(cfg, p, hn)[0], 0.0
-    a = attn.self_attention_full(cfg, p, hn, window=_kind_window(cfg, kind),
-                                 causal=causal)
+        return residual(cfg, h, ssm_mod.ssm_forward(cfg, p, hn)[0]), 0.0
+    if kind == KIND_SSM_MOE:
+        a = ssm_mod.ssm_forward(cfg, p, hn)[0]
+    else:
+        a = attn.self_attention_full(cfg, p, hn,
+                                     window=_kind_window(cfg, kind),
+                                     causal=causal)
     if kind == KIND_HYBRID:
         a = 0.5 * (a + ssm_mod.ssm_forward(cfg, p, hn)[0])
-    h = h + a
+    h = residual(cfg, h, a)
     if enc_out is not None and hasattr(p, "cross_wq"):
         cw = cross_weights(p)
         ck, cv = attn.cross_kv(cfg, cw, enc_out)
-        h = h + attn.cross_attention(cfg, cw, norm(cfg, p, "norm_cross", h),
-                                     ck, cv)
+        h = residual(cfg, h, attn.cross_attention(
+            cfg, cw, norm(cfg, p, "norm_cross", h), ck, cv))
     y, aux = _mlp_part(cfg, kind, p, h)
-    return h + y, aux
+    return residual(cfg, h, y), aux
 
 
 def _ssm_cached(cfg: ModelConfig, p, hn, cache_l, q_pos, decode: bool):
     """The SSM mixer of one cached layer; its state and conv buffer are
     updated in place. A prefill chunk advances each row by its valid
     tokens only (``ssm_forward`` with ``q_pos``); a decode step leaves
-    inactive rows' state as it was."""
+    inactive rows' state as it was. Spans: ``model.ssm`` (detail) around
+    the mixer, and ``model.ssm_prefill`` (the engine's level) around a
+    prefill chunk's."""
     if decode:
-        y, (st, cb) = ssm_mod.ssm_decode_step(
-            cfg, p, hn, cache_l["ssm_state"], cache_l["conv_buf"])
-        ssm_mod.update_state(cache_l, st, cb, keep=q_pos[:, 0] >= 0)
-    else:
+        with detail("model.ssm"):
+            y, (st, cb) = ssm_mod.ssm_decode_step(
+                cfg, p, hn, cache_l["ssm_state"], cache_l["conv_buf"])
+            ssm_mod.update_state(cache_l, st, cb, keep=q_pos[:, 0] >= 0)
+        return y
+    with span("model.ssm_prefill"), detail("model.ssm"):
         y, (st, cb) = ssm_mod.ssm_forward(
             cfg, p, hn, cache_l["ssm_state"], cache_l["conv_buf"],
             q_pos=q_pos)
@@ -303,13 +325,18 @@ def block_cached(cfg: ModelConfig, kind: str, p, h, cache_l, q_pos,
     and hybrid layers ``ssm_state``/``conv_buf``, and for cross-attention
     layers the encoder's ``ck``/``cv`` (read only). ``decode`` (S=1) takes
     the SSM's recurrent step instead of the chunked scan. The MoE's router
-    aux loss is dropped, as the reference's cached path drops it.
+    aux loss is dropped, as the reference's cached path drops it. Each
+    residual branch is scaled by ``cfg.residual_multiplier``.
     """
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    if kind == KIND_SSM:
+    if kind in (KIND_SSM, KIND_SSM_MOE):
         hn = norm(cfg, p, "norm1", h)
-        return h + _ssm_cached(cfg, p, hn, cache_l, q_pos, decode), cache_l
+        h = residual(cfg, h, _ssm_cached(cfg, p, hn, cache_l, q_pos, decode))
+        if kind == KIND_SSM:
+            return h, cache_l
+        with detail("model.mlp"):
+            return residual(cfg, h, _mlp_part(cfg, kind, p, h)[0]), cache_l
     with detail("model.attention"):
         hn = norm(cfg, p, "norm1", h)
         if "pk" in cache_l:
@@ -320,13 +347,13 @@ def block_cached(cfg: ModelConfig, kind: str, p, h, cache_l, q_pos,
                 cfg, p, hn, cache_l, q_pos, window=_kind_window(cfg, kind))
         if kind == KIND_HYBRID:
             a = 0.5 * (a + _ssm_cached(cfg, p, hn, cache_l, q_pos, decode))
-        h = h + a
+        h = residual(cfg, h, a)
         if "ck" in cache_l and hasattr(p, "cross_wq"):
-            h = h + attn.cross_attention(cfg, cross_weights(p),
-                                         norm(cfg, p, "norm_cross", h),
-                                         cache_l["ck"], cache_l["cv"])
+            h = residual(cfg, h, attn.cross_attention(
+                cfg, cross_weights(p), norm(cfg, p, "norm_cross", h),
+                cache_l["ck"], cache_l["cv"]))
     with detail("model.mlp"):
-        return h + _mlp_part(cfg, kind, p, h)[0], cache_l
+        return residual(cfg, h, _mlp_part(cfg, kind, p, h)[0]), cache_l
 
 
 def init_run_cache(cfg: ModelConfig, kind: str, n_layers: int, batch: int,
@@ -346,14 +373,14 @@ def init_run_cache(cfg: ModelConfig, kind: str, n_layers: int, batch: int,
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     cache: dict = {}
     window = _kind_window(cfg, kind)
-    if kind != KIND_SSM:
+    if kind not in (KIND_SSM, KIND_SSM_MOE):
         if kv_layout == "paged" and not window:
             cache.update(attn.init_paged_kv_cache(
                 cfg, num_pages, page_size, n_layers, device=device))
         else:
             cache.update(attn.init_kv_cache(cfg, batch, max_len, n_layers,
                                             window=window, device=device))
-    if kind in (KIND_SSM, KIND_HYBRID):
+    if kind in SSM_KINDS:
         cache.update(ssm_mod.init_ssm_state(cfg, batch, n_layers,
                                             device=device))
     if cfg.cross_attention and enc_seq:

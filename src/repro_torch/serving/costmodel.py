@@ -21,7 +21,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from repro_torch.config import KIND_LOCAL, KIND_SSM, ModelConfig
+from repro_torch.config import (KIND_LOCAL, KIND_SSM, KIND_SSM_MOE,
+                                ModelConfig)
 from repro_torch.serving.kv_cache import (bytes_for_context, page_bytes,
                                     paged_bytes_for_context)
 
@@ -89,7 +90,7 @@ class CostModel:
         cfg = self.cfg
         f = 0.0
         for kind in cfg.layer_kinds:
-            if kind == KIND_SSM:
+            if kind in (KIND_SSM, KIND_SSM_MOE):
                 # SSD decode: state update + readout
                 f += 4.0 * cfg.ssm_expand * cfg.d_model * cfg.ssm_state
                 continue

@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.config import (KIND_ATTN, KIND_HYBRID, KIND_LOCAL, KIND_MOE,
-                                KIND_SSM, ModelConfig)
+                                KIND_SSM, KIND_SSM_MOE, SSM_KINDS,
+                                ModelConfig)
 from repro_torch.models.layers import torch_dtype
 
 
@@ -66,7 +67,7 @@ def dtype_bytes(cfg: ModelConfig) -> int:
 
 def bytes_per_token_kind(cfg: ModelConfig, kind: str) -> int:
     """KV bytes one token adds in one layer of this kind (0 for SSM)."""
-    if kind == KIND_SSM:
+    if kind in (KIND_SSM, KIND_SSM_MOE):
         return 0
     if cfg.kv_quant:     # int8 payload + f32 per-(token,head) scales
         return 2 * (cfg.kv_dim * 1 + cfg.num_kv_heads * 4)
@@ -95,7 +96,7 @@ def bytes_for_context(cfg: ModelConfig, context_len: int) -> int:
             total += per_tok * min(context_len, cfg.sliding_window)
         else:
             total += per_tok * context_len
-        if kind in (KIND_SSM, KIND_HYBRID):
+        if kind in SSM_KINDS:
             total += ssm_state_bytes(cfg)
     if cfg.cross_attention and cfg.encoder_seq:
         total += (cfg.num_layers * 2 * cfg.kv_dim * dtype_bytes(cfg)
@@ -138,7 +139,7 @@ def paged_bytes_for_context(cfg: ModelConfig, context_len: int,
             total += per_tok * pages_for_tokens(win, page_size) * page_size
         else:
             total += per_tok * rounded
-        if kind in (KIND_SSM, KIND_HYBRID):
+        if kind in SSM_KINDS:
             total += ssm_state_bytes(cfg)
     if cfg.cross_attention and cfg.encoder_seq:
         total += (cfg.num_layers * 2 * cfg.kv_dim * dtype_bytes(cfg)
