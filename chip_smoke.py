@@ -65,7 +65,15 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    32 heads of 64, state 128, chunk 128) and ``hymba-1.5b`` (50 heads,
    state 16) and at the L=8 bucket, all from a nonzero initial state,
    plus rows whose tail has dt = 0 (their state equals the shorter
-   scan's) and a scan in two halves (equal to one scan). Tolerances, per
+   scan's) and a scan in two halves (equal to one scan);
+   ``ssm_state_update`` (``phase_ssm_update``) at the decode shapes of
+   ``granite-4.0-h-small`` (64 rows, 128 heads of 64, state 128; all
+   rows live and 6 of 64), ``mamba2-370m`` and ``hymba-1.5b`` (state 16),
+   inactive rows' state bit for bit and their y 0, live rows' state
+   within 1e-6 and y within 1e-5 of scale (y's sum over N in another
+   order), then timed as CUDA graphs of 30 calls beside its bound (the
+   live rows' state read and written once) and the plain version.
+   Tolerances, per
    element: float32 |kernel - plain| <= 1e-5; bfloat16 at most 2e-2 and
    at most one bf16 rounding of the output, 2**-7 * |plain| + 1e-4 (both
    versions compute in float32 and round once), except for the two
@@ -175,12 +183,13 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     kv_layout="contig", ...)``: 12 requests, two with prompts of about
     4000 tokens that carry the state over 16 chunks; check that every
     request finished, that ``ssd_scan`` ran 48 times per prefill chunk
-    and that nothing is NaN; profile one decode megastep and one
+    and ``ssm_state_update`` 48 times per decode step, and that nothing
+    is NaN; profile one decode megastep and one
     prefill chunk; harvest 8 batches of 8 x 512 tap embeddings;
 16. the same for ``hymba-1.5b`` (32 hybrid layers: 1024-token windowed
     attention beside the SSM), two prompts past the window so the rings
     wrap: ``ssd_scan`` 32 times per prefill chunk, ``decode_attention``
-    32 times per decode step.
+    and ``ssm_state_update`` 32 times each per decode step.
 17. train the SSM stacks on the card through ``models.ssm.SSDScan``
     (the ``ssd_scan`` kernel forward, the plain version's backward):
     ``mamba2-smoke`` and ``hymba-smoke`` in float32, ``forward_train``
@@ -292,7 +301,7 @@ ROUNDING = {"float32": None, "bfloat16": (2.0 ** -7, 1e-4)}   # (rel, abs)
 TC_KERNELS = ("flash_attention", "paged_decode_attention_multi")  # bf16: wgmma
 PORT_KERNELS = (r"flash_attention_(tc_)?kernel|paged_multi_(tc_)?kernel|"
                 r"decode_kernel|probe_update_kernel|"
-                r"ssd_scan_(tc_)?kernel")
+                r"ssd_scan_(tc_)?kernel|ssm_state_update_kernel")
 PROBE_TOL = 1e-5
 PAGED_ARGS = ("q", "k_pages", "v_pages", "kpos_pages", "block_table", "q_pos")
 SLOT_ARGS = ("q", "k", "v", "kpos", "q_pos")
@@ -1024,6 +1033,94 @@ def phase_check_ssd(torch):
     compare_ssd("two halves vs one scan", (torch.cat([y1, y2], 1), s2),
                 (y, s))
     return worst
+
+
+SSM_UPDATE_CASES = [  # label, B, nh, hp, N, live rows (decode shapes)
+    ("granite-4.0-h-small", 64, 128, 64, 128, 64),
+    ("granite-4.0-h-small", 64, 128, 64, 128, 6),
+    ("mamba2-370m", 16, 32, 64, 128, 11),
+    ("hymba-1.5b", 16, 50, 64, 16, 11),
+]
+
+
+def ssm_update_case(torch, *, B, nh, hp, N, live, seed):
+    """Inputs of one Mamba-2 decode update on the card, float32: state
+    (B, nh, hp, N), x, dt post-softplus, A negative, Bm/Cm, D, and keep
+    True on ``live`` rows spread over the batch."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    keep = torch.zeros(B, dtype=torch.bool, device="cuda")
+    keep[torch.randperm(B, generator=g, device="cuda")[:live]] = True
+    return dict(state=0.5 * randn(B, nh, hp, N), x=randn(B, nh, hp),
+                dt=torch.nn.functional.softplus(randn(B, nh)),
+                A=-torch.exp(0.3 * randn(nh)), Bm=randn(B, N),
+                Cm=randn(B, N), D=randn(nh), keep=keep)
+
+
+def ssm_update_bound(case):
+    """Bytes: each live row's state read and written once, its x, dt, B
+    and C read, keep, A and D read, y written for every row; 5 float32
+    operations a live state element."""
+    B, nh, hp, N = case["state"].shape
+    live = int(case["keep"].sum())
+    nbytes = 4 * (live * nh * (2 * hp * N + hp + 1) + 2 * live * N
+                  + B * nh * hp + 2 * nh) + B
+    return bound_ms(nbytes, 5 * live * nh * hp * N, "float32")
+
+
+def phase_ssm_update(torch):
+    """``ssm_state_update`` against its plain version at the decode shapes
+    of ``SSM_UPDATE_CASES``: inactive rows' state bit for bit and their y
+    0, live rows' state within 1e-6 and y within 1e-5 of scale; then each
+    case timed as CUDA graphs of 30 calls (kernel, plain, kernel) beside
+    its bound. Returns (the worst error at granite-4.0-h-small's shape
+    with every row live, that case's timing row)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_state_update as upd
+    worst, first = 0.0, None
+    for i, (label, B, nh, hp, N, live) in enumerate(SSM_UPDATE_CASES):
+        case = ssm_update_case(torch, B=B, nh=nh, hp=hp, N=N, live=live,
+                               seed=40 + i)
+        keep = case["keep"]
+        before = case["state"].clone()
+        args = dict(case, state=before.clone())
+        got = upd.ssm_state_update(**case)
+        want = ref.ssm_state_update_ref(**args)
+        torch.cuda.synchronize()
+        dead = ~keep
+        if not (torch.equal(case["state"][dead], before[dead])
+                and bool((got[dead] == 0).all())):
+            fail(f"ssm_state_update {label}: an inactive row's state moved "
+                 f"or its y is not 0")
+        errs = [float((a[keep] - b[keep]).abs().max())
+                / max(1.0, float(b[keep].abs().max()))
+                for a, b in ((case["state"], args["state"]), (got, want))]
+        shape = f"B={B} ({live} live) nh={nh} hp={hp} N={N} float32"
+        log(f"[check] {'ssm_state_update':30s} {label} {shape}: "
+            f"|kernel-plain| / scale: state {errs[0]:.3e} (tol 1e-6), y "
+            f"{errs[1]:.3e} (tol 1e-5); inactive rows bit-equal")
+        if errs[0] > 1e-6 or errs[1] > 1e-5:
+            fail(f"ssm_state_update disagrees with its plain version "
+                 f"({label}, {shape}): {errs}")
+        if i == 0:
+            worst = max(errs)
+        ms = time_graph_ms(torch, lambda: upd.ssm_state_update(**case))
+        plain_ms = time_ms(torch, lambda: ref.ssm_state_update_ref(**case),
+                           iters=5)
+        ms2 = time_graph_ms(torch, lambda: upd.ssm_state_update(**case))
+        b_ms, by = ssm_update_bound(case)
+        log(f"[time] {'ssm_state_update[' + label + ']':40s} {shape}: "
+            f"kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library none, bound {b_ms:.4f} ms ({by}), "
+            f"{100 * b_ms / min(ms, ms2):.1f}% of bound")
+        if first is None:
+            first = dict(ms=min(ms, ms2), plain_ms=plain_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=by)
+        del case, args, before, got, want
+    return worst, first
 
 
 def check_slot(torch, dec, ref, case, window, cap, dtype, label):
@@ -2750,12 +2847,16 @@ def phase_serve_ssm(torch, arch, long_prompts):
     n_ssm = sum(k in (KIND_SSM, KIND_HYBRID) for k in cfg.layer_kinds)
     n_attn = sum(k != KIND_SSM for k in cfg.layer_kinds)
     log(f"[serve] ssd_scan ran {launches['ssd_scan']} times in {chunks} "
-        f"prefill chunks of {n_ssm} SSM layers; decode_attention "
+        f"prefill chunks of {n_ssm} SSM layers; ssm_state_update "
+        f"{launches['ssm_state_update']} times and decode_attention "
         f"{launches['decode_attention']} times in {steps} decode steps of "
-        f"{n_attn} attention layers")
+        f"{n_ssm} SSM and {n_attn} attention layers")
     if not chunks or launches["ssd_scan"] != n_ssm * chunks:
         fail(f"ssd_scan ran {launches['ssd_scan']} times for {chunks} "
              f"prefill chunks of {n_ssm} SSM layers")
+    if not steps or launches["ssm_state_update"] != n_ssm * steps:
+        fail(f"ssm_state_update ran {launches['ssm_state_update']} times "
+             f"for {steps} decode steps of {n_ssm} SSM layers")
     if launches["decode_attention"] != n_attn * steps:
         fail(f"decode_attention ran {launches['decode_attention']} times "
              f"for {steps} decode steps of {n_attn} attention layers")
@@ -3845,6 +3946,7 @@ def main():
     worst = phase_check(torch)
     worst["flash_attention"] = phase_check_flash(torch)
     worst["ssd_scan"] = phase_check_ssd(torch)
+    worst["ssm_state_update"], ssm_update_row = phase_ssm_update(torch)
     phase_check_split(torch)
     rows = phase_time(torch)
     phase_reference(torch)
@@ -3921,6 +4023,11 @@ def main():
             launches=launches[kname], max_abs_err=worst[kname],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    kernels.append(dict(
+        name="ssm_state_update", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssm_state_update.cu",
+        replaces=None, launches=mamba2["ssm_state_update"],
+        max_abs_err=worst["ssm_state_update"], **ssm_update_row))
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

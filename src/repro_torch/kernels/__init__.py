@@ -28,4 +28,7 @@ Kernels:
   ssd_scan                     — the chunked Mamba-2 state-space scan
                                  from an initial state (SSM and hybrid
                                  prefill chunks, training forwards)
+  ssm_state_update             — the Mamba-2 single-token state update,
+                                 in place, rows without a token skipped
+                                 (SSM and hybrid decode steps)
 """

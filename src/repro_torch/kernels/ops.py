@@ -31,6 +31,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import probe as _probe
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssm_state_update as _ssm_upd
 from repro_torch.metrics.spans import detail
 
 launches = build.launches
@@ -129,3 +130,15 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk):
                       chunk=chunk)
     with detail("kernel.ssd_scan"):
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state, chunk=chunk)
+
+
+def ssm_state_update(state, x, dt, A, Bm, Cm, D, keep):
+    """Mamba-2 single-token update of the float32 SSM state, in place.
+    state: (B,nh,hp,N); x: (B,nh,hp); dt: (B,nh) post-softplus; A, D:
+    (nh,); Bm/Cm: (B,N); keep: (B,) bool -> y (B,nh,hp) float32. Rows
+    where ``keep`` is False keep their state bit for bit and get y = 0."""
+    if state.device.type in _PLAIN_DEVICES:
+        return _plain(ref.ssm_state_update_ref, state, x, dt, A, Bm, Cm, D,
+                      keep)
+    with detail("kernel.ssm_state_update"):
+        return _ssm_upd.ssm_state_update(state, x, dt, A, Bm, Cm, D, keep)

@@ -209,3 +209,22 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, init_state=None, *, chunk: int):
     y_inter = torch.einsum("bctn,bcth,bchpn->bcthp", Cr, torch.exp(cum),
                            S_prev)
     return (y_intra + y_inter).reshape(Bsz, L, nh, hp), S
+
+
+def ssm_state_update_ref(state, x, dt, A, Bm, Cm, D, keep):
+    """Mamba-2 single-token state update, in place on ``state``, as the
+    reference model's decode step computes it (``models/ssm.py``
+    ``ssm_decode_step``), all float32.
+
+    state: (B,nh,hp,N) float32; x: (B,nh,hp); dt: (B,nh) post-softplus; A:
+    (nh,) negative; Bm/Cm: (B,N) shared by the heads; D: (nh,); keep: (B,)
+    bool. Where ``keep``, with a = exp(dt A):
+    s <- a s + dt x B^T and y = s C + D x (with the new s); elsewhere the
+    state stays as it was, bit for bit, and y is 0. Returns y (B,nh,hp).
+    """
+    a = torch.exp(dt * A)
+    upd = torch.einsum("bh,bhp,bn->bhpn", dt, x, Bm)
+    new = a[:, :, None, None] * state + upd
+    y = torch.einsum("bhpn,bn->bhp", new, Cm) + D[None, :, None] * x
+    state.copy_(torch.where(keep[:, None, None, None], new, state))
+    return torch.where(keep[:, None, None], y, 0.0)

@@ -3,9 +3,11 @@
 Prefill chunks and training forwards run the chunked SSD scan through the
 ``SSDScan`` Function: its forward is ``kernels.ops.ssd_scan`` (the CUDA
 kernel on the card, its plain version on the CPU), its backward
-differentiates the plain version. Decode is the O(1) recurrent update in
-plain torch, as in the reference ``repro.models.ssm``, which has no kernel
-for it.
+differentiates the plain version. Decode is the O(1) recurrent update
+through ``kernels.ops.ssm_state_update``: on the card one kernel decays,
+updates and reads each live row's float32 state in place, once, and skips
+the rows that hold no token (the reference ``repro.models.ssm`` computes
+it in plain ``jnp``, with no kernel).
 
 State of one layer, per row:
   ssm_state: (B, nh, hp, N) float32 — the running SSD state
@@ -148,10 +150,13 @@ def ssm_forward(cfg: ModelConfig, p, h, state=None, conv_buf=None,
             (S_fin, new_buf))
 
 
-def ssm_decode_step(cfg: ModelConfig, p, h, state, conv_buf):
-    """One-token recurrent update. h: (B,1,d); state: (B,nh,hp,N);
-    conv_buf: (B,W-1,C). Returns (out (B,1,d), (state, conv_buf)), new
-    tensors for every row (the caller keeps inactive rows' old state)."""
+def ssm_decode_step(cfg: ModelConfig, p, h, state, conv_buf, keep=None):
+    """One-token recurrent update. h: (B,1,d); state: (B,nh,hp,N) float32,
+    updated in place; conv_buf: (B,W-1,C); keep: (B,) bool, None for every
+    row. Returns (out (B,1,d), (state, conv_buf)): ``state`` itself, in
+    which rows where ``keep`` is False are left as they were (their output
+    is the mixer's output for y = 0), and a new conv buffer for every row
+    (the caller keeps inactive rows' old one)."""
     d_in, nh, _ = ssm_dims(cfg)
     N = cfg.ssm_groups * cfg.ssm_state
     hp = cfg.ssm_head_dim
@@ -159,15 +164,14 @@ def ssm_decode_step(cfg: ModelConfig, p, h, state, conv_buf):
     proj = h @ p.in_proj.to(h.dtype)                         # (B,1,zxbcdt)
     z, xbc, dt_raw = _split_zxbcdt(cfg, proj)
     xbc, new_buf = _causal_conv(p, xbc, conv_buf)
-    x = xbc[:, 0, :d_in].reshape(B, nh, hp).float()
-    Bm = xbc[:, 0, d_in:d_in + N].float()
-    Cm = xbc[:, 0, d_in + N:].float()
+    x = xbc[:, 0, :d_in].reshape(B, nh, hp).float().contiguous()
+    Bm = xbc[:, 0, d_in:d_in + N].float().contiguous()
+    Cm = xbc[:, 0, d_in + N:].float().contiguous()
     dt = F.softplus(dt_raw[:, 0].float() + p.dt_bias.float())    # (B,nh)
-    a = torch.exp(dt * -torch.exp(p.A_log.float()))
-    upd = torch.einsum("bh,bhp,bn->bhpn", dt, x, Bm)
-    state = a[:, :, None, None] * state.float() + upd
-    y = torch.einsum("bhpn,bn->bhp", state, Cm)
-    y = y + p.D.float()[None, :, None] * x
+    if keep is None:
+        keep = torch.ones(B, dtype=torch.bool, device=h.device)
+    y = ops.ssm_state_update(state, x, dt, -torch.exp(p.A_log.float()), Bm,
+                             Cm, p.D.float(), keep)
     return (_gated_out(cfg, p, y.reshape(B, 1, d_in), z, h.dtype),
             (state, new_buf))
 
@@ -187,12 +191,14 @@ def init_ssm_state(cfg: ModelConfig, batch: int, n_layers: int,
 
 def update_state(cache_l: dict, state, conv_buf, keep=None) -> None:
     """Write a layer's new SSM state and conv buffer into its cache in
-    place; with ``keep`` (B,) bool, rows where it is False keep their old
-    values (the reference's ``_mask_recurrent`` select, on the device)."""
-    old_s, old_b = cache_l["ssm_state"], cache_l["conv_buf"]
+    place; ``state`` None where the state was updated in place already
+    (a decode step, which leaves inactive rows' state as it was). With
+    ``keep`` (B,) bool, rows where it is False keep their old conv buffer
+    (the reference's ``_mask_recurrent`` select, on the device)."""
+    old_b = cache_l["conv_buf"]
+    if state is not None:
+        cache_l["ssm_state"].copy_(state)
     if keep is not None:
-        state = torch.where(keep[:, None, None, None], state, old_s)
         conv_buf = torch.where(keep[:, None, None], conv_buf.to(old_b.dtype),
                                old_b)
-    old_s.copy_(state)
     old_b.copy_(conv_buf)

@@ -296,15 +296,18 @@ def block_train(cfg: ModelConfig, kind: str, p, h, enc_out=None,
 def _ssm_cached(cfg: ModelConfig, p, hn, cache_l, q_pos, decode: bool):
     """The SSM mixer of one cached layer; its state and conv buffer are
     updated in place. A prefill chunk advances each row by its valid
-    tokens only (``ssm_forward`` with ``q_pos``); a decode step leaves
-    inactive rows' state as it was. Spans: ``model.ssm`` (detail) around
-    the mixer, and ``model.ssm_prefill`` (the engine's level) around a
-    prefill chunk's."""
+    tokens only (``ssm_forward`` with ``q_pos``); a decode step updates
+    the state of the rows that hold a token in place and leaves inactive
+    rows' state and conv buffer as they were. Spans: ``model.ssm``
+    (detail) around the mixer, and ``model.ssm_prefill`` (the engine's
+    level) around a prefill chunk's."""
     if decode:
         with detail("model.ssm"):
-            y, (st, cb) = ssm_mod.ssm_decode_step(
-                cfg, p, hn, cache_l["ssm_state"], cache_l["conv_buf"])
-            ssm_mod.update_state(cache_l, st, cb, keep=q_pos[:, 0] >= 0)
+            keep = q_pos[:, 0] >= 0
+            y, (_, cb) = ssm_mod.ssm_decode_step(
+                cfg, p, hn, cache_l["ssm_state"], cache_l["conv_buf"],
+                keep=keep)
+            ssm_mod.update_state(cache_l, None, cb, keep=keep)
         return y
     with span("model.ssm_prefill"), detail("model.ssm"):
         y, (st, cb) = ssm_mod.ssm_forward(

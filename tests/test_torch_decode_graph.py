@@ -34,7 +34,9 @@ B, MAX_LEN, PS, K = 4, 64, 8, 4
 #: name -> (arch, kv layout, kv_quant)
 CASES = {"dense-paged": ("granite-3-8b", "paged", False),
          "moe-paged": ("olmoe-1b-7b", "paged", False),
-         "int8-contig": ("qwen1.5-32b", "contig", True)}
+         "int8-contig": ("qwen1.5-32b", "contig", True),
+         "ssm-contig": ("mamba2-370m", "contig", False),
+         "ssm-moe-paged": ("granite-4.0-h-small", "paged", False)}
 
 
 def setup(arch, layout, kv_quant, device, dtype=None, seed=0):
@@ -348,8 +350,10 @@ def test_cuda_replayed_megastep_is_the_eager_body_bit_for_bit(case):
     assert counts.take() == {"captures": 1, "replays": 2}
     if paged:
         cache["block_table"] = cache["block_table"].clone()
-    else:
-        cache["run_0"][0]["kpos"] = cache["run_0"][0]["kpos"].clone()
+    else:                   # an attention layer's positions, or an SSM state
+        layer = cache["run_0"][0]
+        leaf = "kpos" if "kpos" in layer else "ssm_state"
+        layer[leaf] = layer[leaf].clone()
     for _ in range(3):
         megastep(eos)
     assert counts.take() == {"captures": 1, "replays": 2}

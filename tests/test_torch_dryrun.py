@@ -188,6 +188,11 @@ KERNELS = {
         m(2, 16, 4, 8, dtype=torch.float32), m(2, 16, 4, dtype=torch.float32),
         m(4, dtype=torch.float32), m(2, 16, 8, dtype=torch.float32),
         m(2, 16, 8, dtype=torch.float32), chunk=8),
+    "ssm_state_update": lambda m: ops.ssm_state_update(
+        m(2, 4, 8, 16, dtype=torch.float32), m(2, 4, 8, dtype=torch.float32),
+        m(2, 4, dtype=torch.float32), m(4, dtype=torch.float32),
+        m(2, 16, dtype=torch.float32), m(2, 16, dtype=torch.float32),
+        m(4, dtype=torch.float32), m(2, dtype=torch.bool)),
 }
 
 

@@ -1,6 +1,6 @@
 """The port's kernels against the reference: paged and slot-cache
-flash-decode, the fused probe step, full-sequence flash attention and the
-chunked SSD scan.
+flash-decode, the fused probe step, full-sequence flash attention, the
+chunked SSD scan and the Mamba-2 single-token state update.
 
 On the CPU the port's wrappers (``repro_torch.kernels.ops``) run the plain
 PyTorch versions; they are held against the JAX package's ``ref.py`` and
@@ -238,6 +238,12 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     q, k, v = torch_inputs(flash_fixture(3, 2, 24, 4, 2, 32), "float32")
     got = ops.flash_attention(q, k, v, window=8)
     assert torch.equal(got, tref.flash_attention_ref(q, k, v, window=8))
+    ins = [torch.from_numpy(a) for a in ssm_update_fixture(5, 4, 3, 8, 16,
+                                                           inactive=(1,))]
+    plain = [t.clone() for t in ins]
+    got = ops.ssm_state_update(*ins)
+    assert torch.equal(got, tref.ssm_state_update_ref(*plain))
+    assert torch.equal(ins[0], plain[0])   # the state, updated in place
     assert ops.launches == before          # no kernel launched on the CPU
 
 
@@ -1453,3 +1459,146 @@ def test_cuda_ssd_scan_matches_plain(B, L, nh, hp, N, chunk, decay, dtype):
                                 chunk=chunk)
         for a, b, bound in zip(got, want, ssd_bound(want, mag)):
             assert torch.all((a - b).abs() <= bound)
+
+
+def ssm_update_fixture(seed, B, nh, hp, N, inactive=()):
+    """Inputs of ``ssm_state_update`` (numpy): state (B,nh,hp,N), x
+    (B,nh,hp), dt (B,nh) post-softplus, A (nh,) negative, Bm/Cm (B,N), D
+    (nh,), all float32, and keep (B,) bool, False on ``inactive`` rows."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    keep = np.ones(B, bool)
+    keep[list(inactive)] = False
+    return ((0.5 * rng.standard_normal((B, nh, hp, N))).astype(f),
+            rng.standard_normal((B, nh, hp)).astype(f),
+            np.log1p(np.exp(rng.standard_normal((B, nh)))).astype(f),
+            (-np.exp(rng.standard_normal(nh) * 0.3)).astype(f),
+            rng.standard_normal((B, N)).astype(f),
+            rng.standard_normal((B, N)).astype(f),
+            rng.standard_normal(nh).astype(f), keep)
+
+
+def einsum_decode_update(state, x, dt, A, Bm, Cm, D, keep):
+    """The decode update as ``models.ssm.ssm_decode_step`` and
+    ``update_state`` computed it before the kernel: the two einsums, the
+    decay and the add over every row, then ``torch.where`` against the
+    old state. Returns (new state, y of every row)."""
+    a = torch.exp(dt * A)
+    upd = torch.einsum("bh,bhp,bn->bhpn", dt, x, Bm)
+    new = a[:, :, None, None] * state.float() + upd
+    y = torch.einsum("bhpn,bn->bhp", new, Cm)
+    y = y + D[None, :, None] * x
+    return torch.where(keep[:, None, None, None], new, state), y
+
+
+SSM_UPDATE = [  # B, nh, hp, N, inactive rows
+    (3, 4, 32, 16, (1,)),
+    (5, 2, 64, 128, (0, 3, 4)),
+    (2, 3, 32, 8, ()),
+    (4, 2, 8, 16, (0, 1, 2, 3)),
+]
+
+
+@pytest.mark.parametrize("B,nh,hp,N,inactive", SSM_UPDATE)
+def test_ssm_state_update_plain_equals_the_einsum_update(B, nh, hp, N,
+                                                         inactive):
+    """The plain version with a keep mask equals the einsum update and
+    ``torch.where`` it replaces, bit for bit: the state of every row (an
+    inactive row's as it was) and y of the live rows; y is 0 on inactive
+    rows, which the kernel does not read."""
+    ins = [torch.from_numpy(a) for a in ssm_update_fixture(
+        B + N, B, nh, hp, N, inactive)]
+    old = ins[0].clone()
+    want_state, want_y = einsum_decode_update(*ins)
+    y = tref.ssm_state_update_ref(*ins)
+    keep = ins[-1]
+    assert y.dtype == torch.float32 and y.shape == (B, nh, hp)
+    assert torch.equal(ins[0], want_state)
+    assert torch.equal(ins[0][~keep], old[~keep])
+    assert torch.equal(y[keep], want_y[keep])
+    assert torch.all(y[~keep] == 0)
+
+
+def test_ssm_state_update_binding_refuses_cpu_tensors():
+    """The kernel's binding never takes a CPU tensor, and raises before
+    it would build or launch anything."""
+    from repro_torch.kernels import ssm_state_update as kern
+    ins = [torch.from_numpy(a) for a in ssm_update_fixture(2, 2, 2, 8, 16)]
+    before = dict(ops.launches)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kern.ssm_state_update(*ins)
+    assert ops.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nh,hp,N,inactive", [
+    (64, 128, 64, 128, tuple(range(6, 64))),    # granite4h: 6 of 64 live
+    (16, 32, 64, 128, (0, 5, 6, 15)),           # mamba2-370m
+    (8, 8, 64, 16, (2, 7)),                     # hymba-1.5b's state
+])
+def test_cuda_ssm_state_update_matches_plain(B, nh, hp, N, inactive):
+    """On a card: the kernel against its plain version on the same inputs,
+    the state a layer of a stacked (2, B, nh, hp, N) cache. Inactive rows'
+    state bit for bit and their y 0; live rows' state within 1e-6 of its
+    scale (the update rounds as the plain version does; exp may differ by
+    an ulp) and y within 1e-5 (its sum over N taken in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import ssm_state_update as kern
+    ins = [torch.from_numpy(a).cuda() for a in ssm_update_fixture(
+        B + nh, B, nh, hp, N, inactive)]
+    stacked = torch.stack([torch.zeros_like(ins[0]), ins[0]])
+    plain = [t.clone() for t in ins]
+    got = kern.ssm_state_update(stacked[1], *ins[1:])
+    want = tref.ssm_state_update_ref(*plain)
+    torch.cuda.synchronize()
+    keep = ins[-1]
+    assert got.dtype == torch.float32 and got.shape == (B, nh, hp)
+    assert torch.equal(stacked[1][~keep], ins[0][~keep])
+    assert torch.all(stacked[0] == 0)
+    assert torch.all(got[~keep] == 0)
+    assert rel_err(stacked[1][keep].cpu(), plain[0][keep].cpu()) <= 1e-6
+    assert rel_err(got[keep].cpu(), want[keep].cpu()) <= 1e-5
+    with pytest.raises(ValueError):         # a width the kernel does not take
+        kern.ssm_state_update(ins[0][..., :N - 4].contiguous(), ins[1],
+                              ins[2], ins[3], ins[4][:, :N - 4].contiguous(),
+                              ins[5][:, :N - 4].contiguous(), *ins[6:])
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_state_update_replays_in_a_cuda_graph():
+    """On a card: the call captured in a CUDA graph (keep read on the
+    device, no host sync) and replayed twice equals two plain steps, the
+    second on inputs copied into the graph's buffers; the launches are
+    counted at capture only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import ssm_state_update as kern
+    first = [torch.from_numpy(a).cuda() for a in ssm_update_fixture(
+        1, 16, 8, 64, 128, (3, 9))]
+    second = [torch.from_numpy(a).cuda() for a in ssm_update_fixture(
+        2, 16, 8, 64, 128, (3, 4))]
+    bufs = [t.clone() for t in first]
+    plain_state = first[0].clone()
+    kern.ssm_state_update(bufs[0].clone(), *bufs[1:])     # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = ops.launches["ssm_state_update"]
+    with torch.cuda.graph(graph):
+        y = kern.ssm_state_update(*bufs)
+    assert ops.launches["ssm_state_update"] == n0 + 1
+    graph.replay()
+    want1 = tref.ssm_state_update_ref(plain_state, *first[1:])
+    torch.cuda.synchronize()
+    assert torch.all(y[~first[-1]] == 0)
+    assert rel_err(y.cpu(), want1.cpu()) <= 1e-5
+    assert rel_err(bufs[0].cpu(), plain_state.cpu()) <= 1e-6
+    for buf, t in zip(bufs[1:], second[1:]):
+        buf.copy_(t)
+    graph.replay()
+    want2 = tref.ssm_state_update_ref(plain_state, *second[1:])
+    torch.cuda.synchronize()
+    assert torch.all(y[~second[-1]] == 0)
+    assert rel_err(y.cpu(), want2.cpu()) <= 1e-5
+    assert rel_err(bufs[0].cpu(), plain_state.cpu()) <= 2e-6
+    assert ops.launches["ssm_state_update"] == n0 + 1

@@ -11,9 +11,10 @@ The result line, the last of standard output, gains ``graph``: the
 window's steps, those that ran a megastep (an ``engine.decode`` span), the
 megasteps of the window that replayed a graph and that captured one, the
 ``model.graph_capture`` spans in the window, the captures and replays
-outside it (set-up, warm-up, fill and drain), and the device time of a
+outside it (set-up, warm-up, fill and drain), the device time of a
 prefill chunk and of a megastep (the harness's CUDA events, mean over
-the window's steps).
+the window's steps), and each kernel binding's launches in the window
+over its megasteps.
 """
 
 from __future__ import annotations
@@ -77,8 +78,21 @@ class GraphSpanRun(spantrace.SpanRun):
             "outside_window": self.outside,
             "prefill_ms_per_chunk": _mean(s.prefill_ms for s in win),
             "decode_ms_per_megastep": _mean(s.decode_ms for s in win),
+            "launches_per_megastep": _per_megastep(win),
         }
         return line
+
+
+def _per_megastep(steps) -> dict:
+    """Each binding's launches in ``steps`` over the megasteps they ran
+    (replayed or captured); a binding that the prefill also launches
+    counts those launches too."""
+    n = sum(s.graph["replays"] + s.graph["captures"] for s in steps)
+    total: dict[str, int] = {}
+    for s in steps:
+        for name, k in s.launches.items():
+            total[name] = total.get(name, 0) + k
+    return {name: k / n for name, k in sorted(total.items())} if n else {}
 
 
 def _mean(values):
