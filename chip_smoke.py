@@ -2,15 +2,6 @@
 """Run the PyTorch/CUDA port on one NVIDIA card, end to end, and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare-decode CSRC_DIR [CSRC_DIR ...]
-    python3 chip_smoke.py --compare-ssd CSRC_DIR [CSRC_DIR ...]
-    python3 chip_smoke.py --compare-probe CSRC_DIR [CSRC_DIR ...]
-
-The other forms only time the single-query decode kernels
-(``compare_decode``), ``ssd_scan`` (``compare_ssd_builds``) or
-``probe_update`` (``compare_probe_builds``) built from each kernel source
-directory, in turns, for instance a parent commit's
-``src/repro_torch/kernels/csrc`` beside this one's.
 
 Phases, in order (any failure exits non-zero; nothing is passed over):
 
@@ -92,22 +83,19 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    PyTorch library call computing the same function as a yardstick
    (``scaled_dot_product_attention`` with the same mask; none exists for
    ``probe_update``, whose w1 fits in L2, so it is timed with L2 flushed
-   before every call, at 16 rows and 1, beside the launch floor (an
-   empty kernel launched as the call is: cooperative, on its grid,
-   clusters and shared memory) and the clusters the card holds at once,
-   which the plan reads; nor for ``ssd_scan``); the single-query decode
-   kernels and their library call as CUDA graphs of 30 calls (at the
-   serves' shapes a call takes less device time than its wrapper takes
-   on the host), also at the shapes the serves launch most: the gemma2-9b
-   and hymba-1.5b local rings holding 300 positions, granite's and
-   olmoe's 28-page tables holding about 300 tokens, whisper's and
-   olmoe's 449-slot rows holding 300, and qwen1.5-32b's int8 449-slot
-   rows holding 300 (its library yardstick is SDPA over a bf16 copy of
-   the same cache, twice the bytes); the multi-query kernel and
-   ``flash_attention`` also at paligemma-3b's prefix shape (G = 8, hd
-   256, 512 rows); ``ssd_scan`` at a prefill
-   chunk's shape of mamba2-370m and hymba-1.5b and at the tap harvest's
-   (mamba2-370m, 8 x 512 from a zero state);
+   before every call, at 16 rows and 1; nor for ``ssd_scan``); the
+   single-query decode kernels and their library call as CUDA graphs of
+   30 calls (at the serves' shapes a call takes less device time than
+   its wrapper takes on the host), also at the shapes the serves launch
+   most: the gemma2-9b and hymba-1.5b local rings holding 300 positions,
+   granite's and olmoe's 28-page tables holding about 300 tokens,
+   whisper's and olmoe's 449-slot rows holding 300, and qwen1.5-32b's
+   int8 449-slot rows holding 300 (its library yardstick is SDPA over a
+   bf16 copy of the same cache, twice the bytes); the multi-query kernel
+   and ``flash_attention`` also at paligemma-3b's prefix shape (G = 8,
+   hd 256, 512 rows); ``ssd_scan`` at a prefill chunk's shape of
+   mamba2-370m and hymba-1.5b and at the tap harvest's (mamba2-370m, 8 x
+   512 from a zero state);
 5. hold the model on the card against the same weights on the CPU in
    float32: ``granite-smoke`` (paged), ``gemma2-smoke`` (contiguous and
    paged), ``mamba2-smoke`` and ``hymba-smoke`` (contiguous and
@@ -130,8 +118,7 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    used at the drain, its host wall, dispatch counts, engine steps, peak
    memory and launches logged; then the reference's migration test on
    ``granite-smoke`` in float32 on the card (the migrated request's
-   greedy tokens equal the unmigrated run's and the CPU's); profile one
-   decode megastep and one prefill chunk;
+   greedy tokens equal the unmigrated run's and the CPU's);
 7. serve ``gemma2-9b`` at full width and depth (42 layers, random weights
    from seed 0) through ``run_policy(mode="real", kv_layout="contig",
    ...)``: 12 requests, two with prompts past the 4096-token window so the
@@ -142,55 +129,52 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    checking ``lengths == _kv_written`` after every step;
 8. drive ``launch.steps.make_serve_step`` on ``gemma2-9b`` for 8 steps
    after a prefill: each step's fused probe (``probe_update``) against
-   its plain version on the same tap, predicted lengths finite; then
-   profile one more step (its wall and device time);
-9. profile one ``gemma2-9b`` decode megastep and one prefill chunk;
-10. ``flash_attention`` (the training and profiling forwards): checked in
-    phase 3 against its plain version, float32 and bfloat16, at the
-    shapes of ``tests/test_kernels.py``, non-causal at S=200, and at the
-    path's shapes (trail-llama 8x512 with 12/4 heads, granite 8x512 with
-    32/8 heads, a gemma2-9b local layer at S=4608 with window 4096 and
-    softcap 50, a gemma3-1b local layer with window 512, hymba-1.5b's
-    25/5 heads with window 1024 at S=1500, and granite's heads at S=777,
-    neither a multiple of the key tile, and the whisper-tiny encoder's
-    non-causal 16 x 1500 with 6/6 heads of 64), plus the
-    ``FlashAttention`` Function's gradients against plain autograd
-    (causal, and non-causal as in the encoder); timed in phase 4 at the
-    trail-llama, granite, gemma2 and whisper encoder shapes (library
-    yardstick: ``scaled_dot_product_attention(is_causal=...,
-    enable_gqa=True)``, no softcap or window);
-11. hold the training path on the card against the CPU in float32 on
+   its plain version on the same tap, predicted lengths finite;
+9. ``flash_attention`` (the training and profiling forwards): checked in
+   phase 3 against its plain version, float32 and bfloat16, at the
+   shapes of ``tests/test_kernels.py``, non-causal at S=200, and at the
+   path's shapes (trail-llama 8x512 with 12/4 heads, granite 8x512 with
+   32/8 heads, a gemma2-9b local layer at S=4608 with window 4096 and
+   softcap 50, a gemma3-1b local layer with window 512, hymba-1.5b's
+   25/5 heads with window 1024 at S=1500, and granite's heads at S=777,
+   neither a multiple of the key tile, and the whisper-tiny encoder's
+   non-causal 16 x 1500 with 6/6 heads of 64), plus the
+   ``FlashAttention`` Function's gradients against plain autograd
+   (causal, and non-causal as in the encoder); timed in phase 4 at the
+   trail-llama, granite, gemma2 and whisper encoder shapes (library
+   yardstick: ``scaled_dot_product_attention(is_causal=...,
+   enable_gqa=True)``, no softcap or window);
+10. hold the training path on the card against the CPU in float32 on
     ``trail-llama-smoke`` and ``gemma2-smoke`` (S=64, so the window of 16
     binds): ``forward_train`` loss and tap, every parameter's gradient,
     and one ``train_lm`` step;
-12. profile ``granite-3-8b`` at full width and depth on its served model:
+11. profile ``granite-3-8b`` at full width and depth on its served model:
     harvest 4 batches of 8 x 512 tokens of tap embeddings with
     ``harvest_probe_data`` and train a probe on them (printed, not gated:
     the weights are random);
-13. one ``gemma2-9b`` ``forward_train`` at B=1, S=4608 (past the 4096-token
+12. one ``gemma2-9b`` ``forward_train`` at B=1, S=4608 (past the 4096-token
     window) under inference mode: 42 launches, a finite loss;
-14. train ``trail-llama`` at full width (12 layers, d_model 768) through
+13. train ``trail-llama`` at full width (12 layers, d_model 768) through
     ``python -m repro_torch.launch.train``'s ``main`` for ``TRAIN_STEPS``
     steps of 8 x 512 tokens: the last logged loss below 0.7 x the first
     (the reference's own test factor), 24 ``flash_attention`` launches per
     step (12 layers, and 12 again in the remat recompute), the ``--ckpt``
     file read back with ``load_npz``; then harvest its taps, check
     ``forward_all_taps``, train the probe (its MAE below the
-    uniform prior's), serve 12 requests with that probe under
-    ``policy="trail"``, and profile one train step;
-15. serve ``mamba2-370m`` at full width and depth (48 SSM layers, random
+    uniform prior's), and serve 12 requests with that probe under
+    ``policy="trail"``;
+14. serve ``mamba2-370m`` at full width and depth (48 SSM layers, random
     weights from seed 0) through ``run_policy(mode="real",
     kv_layout="contig", ...)``: 12 requests, two with prompts of about
     4000 tokens that carry the state over 16 chunks; check that every
     request finished, that ``ssd_scan`` ran 48 times per prefill chunk
     and ``ssm_state_update`` 48 times per decode step, and that nothing
-    is NaN; profile one decode megastep and one
-    prefill chunk; harvest 8 batches of 8 x 512 tap embeddings;
-16. the same for ``hymba-1.5b`` (32 hybrid layers: 1024-token windowed
+    is NaN; harvest 8 batches of 8 x 512 tap embeddings;
+15. the same for ``hymba-1.5b`` (32 hybrid layers: 1024-token windowed
     attention beside the SSM), two prompts past the window so the rings
     wrap: ``ssd_scan`` 32 times per prefill chunk, ``decode_attention``
     and ``ssm_state_update`` 32 times each per decode step.
-17. train the SSM stacks on the card through ``models.ssm.SSDScan``
+16. train the SSM stacks on the card through ``models.ssm.SSDScan``
     (the ``ssd_scan`` kernel forward, the plain version's backward):
     ``mamba2-smoke`` and ``hymba-smoke`` in float32, ``forward_train``
     loss and every parameter's gradient against the CPU on the same
@@ -199,16 +183,16 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     ``mamba2-370m`` at full width and depth for ``SSM_TRAIN_STEPS`` steps
     of 8 x 512 through ``launch.train.main``: the last logged loss below
     0.7 x the first, ``ssd_scan`` twice a layer a step (forward and remat
-    recompute); then profile one such train step and time one layer's
-    ``SSDScan`` there, the kernel forward against the plain backward;
-18. serve through the entry point, ``repro_torch.launch.serve.main``, in
+    recompute); then time one layer's ``SSDScan`` at that step's shape,
+    the kernel forward against the plain backward;
+17. serve through the entry point, ``repro_torch.launch.serve.main``, in
     process (``SERVE_CLI_RUNS``): ``granite-3-8b --real --n 12`` under
     the contiguous layout (``decode_attention``) writing
     ``--metrics-out`` (it must parse, and the run's event log must pass
     ``check_invariants``), the same under ``--kv-layout paged`` (both
     paged kernels), and ``mamba2-370m --real --n 12`` (``ssd_scan``):
     12 of 12 finished each, the host wall of each run printed;
-19. ``phase_serve_whisper``: ``whisper-tiny`` at full width and depth (4
+18. ``phase_serve_whisper``: ``whisper-tiny`` at full width and depth (4
     encoder and 4 decoder layers, 1500 frames): in float32 on the card
     against the CPU, under the contiguous and the paged layout,
     ``prefill_chunk(enc_embeds=...)`` over 16 x 1500
@@ -221,16 +205,14 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     one ``forward_train`` and backward
     with frame embeddings at 8 x 448 (4 non-causal launches in the
     encoder, 8 causal in the decoder with its remat recompute);
-20. ``phase_serve_moe``: ``olmoe-1b-7b`` at full width and depth (16
+19. ``phase_serve_moe``: ``olmoe-1b-7b`` at full width and depth (16
     layers, 64 experts top 8): the 12 requests served paged (both paged
     kernels) and contiguous (``decode_attention``), ``moe_mlp`` at a
     decode step's and a prefill chunk's shape under
-    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), a decode
-    megastep and a prefill chunk profiled with their device time split
-    into the attention kernels and the MoE's router, dispatch, expert
-    products and combine, and ``olmoe-smoke`` in float32 against the CPU
-    (phase 5's check, contiguous and paged);
-21. ``phase_prefix``: ``paligemma-3b`` at full width and depth (18
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and
+    ``olmoe-smoke`` in float32 against the CPU (phase 5's check,
+    contiguous and paged);
+20. ``phase_prefix``: ``paligemma-3b`` at full width and depth (18
     layers, 8/1 heads of 256, 256 prefix positions): the 12 requests
     served paged and contiguous (text only, as the reference engine
     serves it); ``prefill_chunk`` with a seeded 4 x 256 bf16 prefix before
@@ -239,15 +221,14 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
     ``prefix_embeds`` at 4 x (256 + 256) through ``flash_attention``;
     ``paligemma-smoke`` in float32 with a prefix, card against CPU,
     under both layouts;
-22. ``phase_serve_qwen_int8``: ``qwen-smoke`` in float32 with
+21. ``phase_serve_qwen_int8``: ``qwen-smoke`` in float32 with
     ``kv_quant`` on the card against the CPU (phase 5's check; the int8
     payloads compared too), then ``qwen1.5-32b`` with ``kv_quant=True``
     at full width and depth (64 layers, d_model 5120, 40/40 heads of
     128; 68.5 GiB of weights): the 12 requests served contiguous with 16
     rows, every decode step through the int8 ``decode_attention``, peak
-    memory and the cache's int8 and bf16 bytes logged, one decode
-    megastep and one prefill chunk profiled;
-23. ``phase_dryrun``: the dry run for one H100
+    memory and the cache's int8 and bf16 bytes logged;
+22. ``phase_dryrun``: the dry run for one H100
     (``repro_torch.launch.dryrun``, on meta tensors, in a process a CPU)
     over every architecture and input shape, a line each (fit,
     predicted peak, bounding term; no case may fail); then every decode
@@ -299,9 +280,6 @@ PEAK_OPS = {"bfloat16": 989e12,     # dense bf16 tensor-core rate
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}        # max |kernel - plain|
 ROUNDING = {"float32": None, "bfloat16": (2.0 ** -7, 1e-4)}   # (rel, abs)
 TC_KERNELS = ("flash_attention", "paged_decode_attention_multi")  # bf16: wgmma
-PORT_KERNELS = (r"flash_attention_(tc_)?kernel|paged_multi_(tc_)?kernel|"
-                r"decode_kernel|probe_update_kernel|"
-                r"ssd_scan_(tc_)?kernel|ssm_state_update_kernel")
 PROBE_TOL = 1e-5
 PAGED_ARGS = ("q", "k_pages", "v_pages", "kpos_pages", "block_table", "q_pos")
 SLOT_ARGS = ("q", "k", "v", "kpos", "q_pos")
@@ -1468,10 +1446,10 @@ DECODE_TIMED = [
 ]
 
 
-def decode_timed_case(torch, kind, spec, with_split=True):
+def decode_timed_case(torch, kind, spec):
     """Inputs of a DECODE_TIMED row: (wrapper arguments, window, softcap,
     shape text, library call, bound); the text names the split the launch
-    uses (``with_split``)."""
+    uses."""
     import numpy as np
     if kind == "paged":
         arch, pmax, serve = spec
@@ -1487,10 +1465,9 @@ def decode_timed_case(torch, kind, spec, with_split=True):
         shape = f"B=16 H={H} KH={KH} hd={hd} ps=16 pmax={pmax} bf16"
         if serve:
             shape += f" lengths {lengths.min()}-{lengths.max()}"
-        if with_split:
-            shape += " split=%d" % decode_split(
-                "paged_decode_attention", "bfloat16", B=16, H=H, KH=KH,
-                hd=hd, ps=16, pmax=pmax)
+        shape += " split=%d" % decode_split(
+            "paged_decode_attention", "bfloat16", B=16, H=H, KH=KH, hd=hd,
+            ps=16, pmax=pmax)
         return (args, 0, 0.0, shape, paged_library_call(torch, case),
                 paged_bound(case, "bfloat16"))
     H, KH, hd, M, window, cap, length = spec
@@ -1501,118 +1478,14 @@ def decode_timed_case(torch, kind, spec, with_split=True):
     shape = (f"B=16 H={H} KH={KH} hd={hd} M={M} window={window} "
              f"softcap={cap:2.0f} bf16{' q, int8 K/V' * int8}, {length} "
              f"positions a row")
-    if with_split:
-        shape += " split=%d" % decode_split(
-            "decode_attention", "bfloat16", int8=int8, B=16, H=H, KH=KH,
-            hd=hd, M=M)
+    shape += " split=%d" % decode_split(
+        "decode_attention", "bfloat16", int8=int8, B=16, H=H, KH=KH, hd=hd,
+        M=M)
     args = [case[n] for n in SLOT_ARGS]
     if int8:
         args += [case["k_scale"], case["v_scale"]]
     return (args, window, cap, shape, slot_library_call(case, window),
             slot_bound(case, window, "bfloat16"))
-
-
-def build_entries(dirs, sig):
-    """Build ``<name>.cu`` for each name of ``sig`` from each kernel source
-    directory (``build_libraries``) and return, per directory, each
-    name's ``<name>_launch`` entry with the C argument types ``sig``
-    gives."""
-    return [{name: c_entry(libs[name], f"{name}_launch", argtypes)
-             for name, argtypes in sig.items()}
-            for libs in build_libraries(dirs, sig)]
-
-
-def c_entry(lib, entry, argtypes):
-    """``entry`` of a ctypes library, declared with ``argtypes`` and an int
-    result (a CUDA error code)."""
-    import ctypes
-    fn = getattr(lib, entry)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
-
-
-def build_libraries(dirs, names, flags=(), into="compare"):
-    """Build ``<name>.cu`` for each of ``names`` from each kernel source
-    directory (one ``nvcc`` each, all at once, with the package's flags
-    and ``flags``, into ``build/<into>/<i>``) and return, per directory,
-    each name's loaded library."""
-    import ctypes
-    from repro_torch.kernels import build
-    outs = [build.BUILD_DIR.parent / into / str(i)
-            for i in range(len(dirs))]
-    jobs = []
-    for d, out in zip(dirs, outs):
-        out.mkdir(parents=True, exist_ok=True)
-        for name in names:
-            cmd = [build.nvcc(), *build.NVCC_FLAGS, *flags, "-o",
-                   str(out / f"{name}.so"), str(Path(d) / f"{name}.cu")]
-            jobs.append((cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-    for cmd, proc in jobs:
-        report, _ = proc.communicate()
-        if proc.returncode:
-            fail(f"{' '.join(cmd)} failed:\n{report}")
-        for kernel, usage in ptxas_usage(report):
-            log(f"[build] {cmd[-1]}: {kernel}: {usage}")
-    return [{name: ctypes.CDLL(str(out / f"{name}.so")) for name in names}
-            for out in outs]
-
-
-def compare_decode(torch, dirs):
-    """``--compare-decode DIR ...``: build ``decode_attention.cu`` and
-    ``paged_decode_attention.cu`` from each kernel source directory DIR
-    (``src/repro_torch/kernels/csrc`` of this checkout or of another one,
-    say the parent commit's from ``git archive``; their C entries are the
-    same) and time their single-query entries at the DECODE_TIMED shapes
-    in turns (first to last, then last to first), each as a CUDA graph of
-    30 calls, beside the library call. Each build's result is first held
-    against the plain version."""
-    import ctypes
-    from repro_torch.kernels import ref
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    entries = build_entries(dirs, {
-        "decode_attention": [ptr] * 6 + [i32] * 6 + [f32, i32, f32, ptr],
-        "paged_decode_attention":
-            [ptr] * 7 + [i32] * 7 + [f32, i32, f32, ptr]})
-    for label, kind, spec in DECODE_TIMED:
-        if kind == "slot_int8":     # an entry of its own, not in older builds
-            continue
-        args, window, cap, shape, lib, (b_ms, by) = decode_timed_case(
-            torch, kind, spec, with_split=False)
-        q = args[0]
-        B, H, hd = q.shape
-        out = torch.empty_like(q)
-        name = "paged_decode_attention" if kind == "paged" else \
-            "decode_attention"
-        if kind == "paged":
-            ps, KH = args[1].shape[1], args[1].shape[2]
-            sizes = (B, H, KH, hd, ps, args[4].shape[1])
-            want = ref.paged_decode_attention_ref(*args)
-        else:
-            sizes = (B, H, args[1].shape[2], hd, args[1].shape[1])
-            want = ref.decode_attention_ref(*args, window=window,
-                                            softcap=cap)
-        fns = []
-        for d, entry in zip(dirs, entries):
-            def launch(fn=entry[name]):
-                err = fn(*(a.data_ptr() for a in args), out.data_ptr(), 1,
-                         *sizes, hd ** -0.5, window, cap,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    fail(f"{label} ({d}): CUDA error {err}")
-            launch()
-            torch.cuda.synchronize()
-            compare(name, f"{label} ({d})", out, want, "bfloat16")
-            fns.append(launch)
-        times = [[] for _ in fns]
-        for i in [*range(len(fns)), *reversed(range(len(fns)))]:
-            times[i].append(time_graph_ms(torch, fns[i]))
-        lib_ms = time_graph_ms(torch, lib, iters=10)
-        log(f"[compare] {label} {shape}: " + "; ".join(
-            f"{d}: {min(t):.4f} ms ({100 * b_ms / min(t):.1f}% of bound)"
-            for d, t in zip(dirs, times))
-            + f"; library {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({by})")
 
 
 def ssd_timed_case(torch, spec):
@@ -1626,220 +1499,8 @@ def ssd_timed_case(torch, spec):
                   + ("initial state" if carried else "zero initial state"))
 
 
-def compare_ssd_builds(torch, dirs):
-    """``--compare-ssd DIR ...``: build ``ssd_scan.cu`` from each kernel
-    source directory DIR (this checkout's or, say, the parent commit's
-    from ``git archive``; the C entry is the same) and time it at the
-    SSD_TIMED shapes in turns (first to last, then last to first), each
-    build first held against the plain version (``ssd_tc_bound``)."""
-    import ctypes
-    from repro_torch.kernels import ref
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    entries = build_entries(dirs, {"ssd_scan": [ptr] * 8 + [i32] * 7 + [ptr]})
-    for label, spec in SSD_TIMED.items():
-        case, shape = ssd_timed_case(torch, spec)
-        x = case["x"]
-        B, L, nh, hp = x.shape
-        N = case["Bm"].shape[-1]
-        y = torch.empty((B, L, nh, hp), dtype=torch.float32, device="cuda")
-        s_fin = torch.empty((B, nh, hp, N), dtype=torch.float32,
-                            device="cuda")
-        s0 = case.get("init_state")
-        want = ref.ssd_scan_ref(**case, chunk=128)
-        bounds = ssd_tc_bound(*want, *ssd_magnitudes(ref, case, 128))
-        fns = []
-        for d, entry in zip(dirs, entries):
-            def launch(fn=entry["ssd_scan"], d=d):
-                err = fn(*(case[k].data_ptr() for k in
-                           ("x", "dt", "A", "Bm", "Cm")),
-                         None if s0 is None else s0.data_ptr(),
-                         y.data_ptr(), s_fin.data_ptr(), 1, B, L, nh, hp, N,
-                         128, torch.cuda.current_stream().cuda_stream)
-                if err:
-                    fail(f"{label} ({d}): CUDA error {err}")
-            launch()
-            torch.cuda.synchronize()
-            compare_ssd(f"{label} ({d})", (y, s_fin), want, bounds=bounds)
-            fns.append(launch)
-        times = [[] for _ in fns]
-        for i in [*range(len(fns)), *reversed(range(len(fns)))]:
-            times[i].append(time_ms(torch, fns[i]))
-        b_ms, by = ssd_bound(case, 128, "bfloat16")
-        log(f"[compare] {label} {shape}: " + "; ".join(
-            f"{d}: {min(t):.4f} ms ({100 * b_ms / min(t):.1f}% of bound)"
-            for d, t in zip(dirs, times))
-            + f"; bound {b_ms:.4f} ms ({by})")
-        del case, y, s_fin, want, bounds
-
-
 PROBE_TIMED = {"probe_update[gemma2-9b]": 16,  # label: rows (d 3584)
                "probe_update[gemma2-9b,B=1]": 1}
-
-
-def probe_floor(torch, probe):
-    """The floor under a timed ``probe_update`` call (gemma2-9b width, 16
-    rows), timed as the calls are (L2 flushed): an empty kernel launched
-    as the call is (cooperative, on its grid, clusters and shared
-    memory)."""
-    import ctypes
-    from repro_torch.kernels import build
-    active = probe.active_clusters(0)
-    pl = probe.plan(16, 3584, 512, 10, active)
-    floor = c_entry(build.load("probe"), "probe_floor_launch",
-                    [ctypes.c_int] * 3 + [ctypes.c_void_p])
-
-    def launch():
-        err = floor(pl.cluster, pl.clusters, pl.smem,
-                    torch.cuda.current_stream().cuda_stream)
-        if err:
-            fail(f"probe_floor_launch: CUDA error {err}")
-    ms = time_cold_ms(torch, launch)
-    log(f"[time] {'probe_update launch floor':40s} {pl.cluster} x "
-        f"{pl.clusters} CTAs in clusters of {pl.cluster}, {pl.smem} B of "
-        f"shared memory each, L2 flushed: an empty cooperative kernel "
-        f"{ms:.4f} ms; clusters of 1-8 CTAs the card holds at once at one "
-        f"CTA an SM: {active}")
-    return ms
-
-
-def parent_split_d(B: int, d: int, hid: int) -> tuple[int, int]:
-    """(nsplit, dslice) of the two-kernel ``probe.cu`` (commit 6bb40c9 and
-    before), a copy of its wrapper's ``split_d``: how its first pass cut
-    d, which sizes its scratch of nsplit x B x hid floats."""
-    tiles = -(-hid // 32) * -(-B // 16)
-    nsplit = max(-(-d // 256), min(-(-d // 64), -(-2 * 132 // tiles)))
-    dslice = -(-d // nsplit)
-    return -(-d // dslice), dslice
-
-
-def compare_probe_builds(torch, dirs):
-    """``--compare-probe DIR ...``: build ``probe.cu`` from each kernel
-    source directory DIR (this checkout's, or the parent commit's from
-    ``git archive``: a source with ``probe_hidden_kernel`` is the
-    two-kernel version of 6bb40c9 and before, whose C entry takes
-    ``parent_split_d``'s cut and its scratch) and time it at the
-    PROBE_TIMED shapes in turns (first to last, then last to first) with
-    L2 flushed before each call, each build first held to PROBE_TOL
-    against the plain version; a build of this checkout's kind with row
-    tiles of 4 at B=1 is also timed with row tiles of 16. Then the
-    launch floor and the phases of this checkout's kernel
-    (``probe_phases``)."""
-    import ctypes
-    from repro_torch.kernels import probe, ref
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    libs = build_libraries(dirs, ["probe"])
-    d, hid, k = 3584, 512, 10
-    for label, B in PROBE_TIMED.items():
-        case = probe_case(torch, B=B, d=d, hid=hid, k=k,
-                          tap_dtype="bfloat16", seed=9)
-        args = list(case.values())
-        want = ref.probe_update_ref(*args)
-        pl = probe.plan(B, d, hid, k, probe.active_clusters(0))
-        builds = []
-        for src, lib in zip(dirs, libs):
-            text = (Path(src) / "probe.cu").read_text()
-            if "probe_hidden_kernel" in text:
-                cut = parent_split_d(B, d, hid)
-                builds.append((src, lib, cut, cut[0] * B * hid))
-                continue
-            cut = (pl.row_tile, pl.cluster, pl.clusters, pl.dslice, pl.npass)
-            builds.append((src, lib, cut, pl.scratch))
-            if pl.row_tile != 16:
-                builds.append((f"{src} (row tiles of 16)", lib,
-                               (16,) + cut[1:], pl.scratch))
-        fns = []
-        for src, lib, cut, size in builds:
-            q_new = torch.empty((B, k), dtype=torch.float32, device="cuda")
-            p = torch.empty_like(q_new)
-            scratch = torch.empty(size, device="cuda")
-            fn = c_entry(lib["probe"], "probe_update_launch",
-                         [ptr] * 10 + [i32] * (5 + len(cut)) + [ptr])
-
-            def launch(fn=fn, q_new=q_new, p=p, scratch=scratch, cut=cut,
-                       src=src):
-                err = fn(*(a.data_ptr() for a in args), q_new.data_ptr(),
-                         p.data_ptr(), scratch.data_ptr(), 1, B, d, hid, k,
-                         *cut, torch.cuda.current_stream().cuda_stream)
-                if err:
-                    fail(f"{label} ({src}): CUDA error {err}")
-                return q_new, p
-            got = launch()
-            torch.cuda.synchronize()
-            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-            log(f"[check] {label} ({src}): max|kernel-plain| q_new "
-                f"{errs[0]:.3e}, p {errs[1]:.3e} (tol {PROBE_TOL:.0e})")
-            if max(errs) > PROBE_TOL:
-                fail(f"{label} ({src}) disagrees with its plain version")
-            fns.append(launch)
-        times = [[] for _ in fns]
-        for i in [*range(len(fns)), *reversed(range(len(fns)))]:
-            times[i].append(time_cold_ms(torch, fns[i]))
-        b_ms, by = probe_bound(case)
-        log(f"[compare] {label} B={B} d={d} hid={hid} k={k} bf16 tap, L2 "
-            "flushed: " + "; ".join(
-                f"{b[0]}: {min(t):.4f} ms ({100 * b_ms / min(t):.1f}% of "
-                f"bound)" for b, t in zip(builds, times))
-            + f"; bound {b_ms:.4f} ms ({by})")
-    probe_floor(torch, probe)
-    probe_phases(torch, probe)
-
-
-PROBE_PHASES = ("start", "requests issued", "tap staged", "w1 multiplied",
-                "cluster barrier", "partial logits", "grid barrier",
-                "filtered")
-
-
-def probe_phases(torch, probe, calls=20):
-    """Where a ``probe_update`` call's time goes: this checkout's
-    ``probe.cu`` built with ``-DPROBE_STAMPS`` (every CTA stamps the
-    global timer at each phase) at the PROBE_TIMED shapes, ``calls``
-    calls after one warm-up, L2 flushed before each. Per phase: the median
-    over CTAs of its stamp less the call's first start ("filtered": the
-    latest, when the call's last row is done), then the median over
-    calls, in microseconds. The launch comes before the first stamp."""
-    import ctypes
-    import numpy as np
-    from repro_torch.kernels import build, ref
-    lib = build_libraries([build.CSRC], ["probe"], ("-DPROBE_STAMPS",),
-                          "stamps")[0]["probe"]
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    launch = c_entry(lib, "probe_update_launch", [ptr] * 10 + [i32] * 10
-                     + [ptr])
-    take = c_entry(lib, "probe_take_stamps", [ptr, i32])
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    d, hid, k = 3584, 512, 10
-    for label, B in PROBE_TIMED.items():
-        args = list(probe_case(torch, B=B, d=d, hid=hid, k=k,
-                               tap_dtype="bfloat16", seed=9).values())
-        pl = probe.plan(B, d, hid, k, probe.active_clusters(0))
-        out = [torch.empty(n, device="cuda") for n in (B * k, B * k,
-                                                       pl.scratch)]
-        ctas = pl.cluster * pl.clusters
-        host = (ctypes.c_ulonglong * (ctas * len(PROBE_PHASES)))()
-        runs = []
-        for i in range(calls + 1):
-            flush.zero_()
-            err = launch(*(a.data_ptr() for a in args),
-                         *(t.data_ptr() for t in out), 1, B, d, hid, k,
-                         pl.row_tile, pl.cluster, pl.clusters, pl.dslice,
-                         pl.npass, torch.cuda.current_stream().cuda_stream)
-            err = err or take(host, len(host))
-            if err:
-                fail(f"{label} (stamped build): CUDA error {err}")
-            st = np.array(host, dtype=np.int64).reshape(ctas, -1)
-            if i:
-                t = (st - st[:, :1].min()) / 1e3
-                runs.append([np.median(t[:, j]) for j in range(len(t[0]) - 1)]
-                            + [t[:, -1].max()])
-        want = ref.probe_update_ref(*args)
-        errs = [float((a.view(B, k) - b).abs().max())
-                for a, b in zip(out, want)]
-        if max(errs) > PROBE_TOL:
-            fail(f"{label} (stamped build) disagrees with its plain version")
-        log(f"[phases] {label} B={B} bf16 tap, L2 flushed, {ctas} CTAs, "
-            f"median of {calls} calls, us from the first CTA's start: "
-            + "; ".join(f"{n} {m:.2f}" for n, m in
-                        zip(PROBE_PHASES, np.median(runs, axis=0))))
 
 
 def phase_time(torch):
@@ -1919,7 +1580,6 @@ def phase_time(torch):
             lambda: probe.probe_update(*args),
             lambda: ref.probe_update_ref(*args), None, probe_bound(case),
             timer=time_cold_ms)
-    probe_floor(torch, probe)
 
     # ssd_scan: one prefill chunk of a full slot batch from a carried
     # state, and one tap-harvest forward (8 x 512) from zeros
@@ -2298,13 +1958,6 @@ def phase_serve_granite(torch):
         f"_kv_written after every step, tokens in range, posteriors and KV "
         f"pool finite")
     phase_cluster(torch, cfg, model, knobs)
-    gc.collect()
-    torch.cuda.empty_cache()
-    cache = model.init_cache(16, 448, kv_layout="paged", page_size=16)
-    cache["block_table"].copy_(torch.arange(
-        1, 1 + 16 * 28, dtype=torch.int32, device="cuda").reshape(16, 28))
-    phase_profile(torch, model, cache)
-    del cache
     gc.collect()
     torch.cuda.empty_cache()
     # 4 batches: the probe trainer is exercised at full width without
@@ -2696,9 +2349,8 @@ def phase_long_forward(torch, cfg, model):
 
 def phase_train(torch):
     """Train trail-llama at full width through the launcher's ``main``, then
-    profile its taps, train the probe on them, serve with that probe and
-    profile one train step. Returns the training run's launch counts."""
-    import numpy as np
+    profile its taps, train the probe on them and serve with that probe.
+    Returns the training run's launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.models.model import load_npz, params_from_jax
@@ -2775,19 +2427,6 @@ def phase_train(torch):
     served, *_ = _serve(torch, cfg, model, reqs, knobs, pred)
     if served["decode_attention"] <= 0:
         fail("decode_attention never launched serving the trained model")
-
-    from repro_torch.training import optimizer as opt
-    from repro_torch.training.data import DataConfig, batches
-    from repro_torch.training.train import make_train_step
-    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=4, total_steps=TRAIN_STEPS)
-    step = make_train_step(model, ocfg)
-    state = opt.init(ocfg, params)
-    batch = next(batches(DataConfig(vocab=cfg.vocab_size, seq_len=512,
-                                    batch=8, max_out=448, seed=9), 1))
-    batch = {k: torch.from_numpy(np.asarray(batch[k])).to("cuda")
-             for k in ("tokens", "labels")}
-    _profile(torch, cfg.name, "train step 8 x 512",
-             lambda: step(params, state, batch))
     return launches
 
 
@@ -2831,11 +2470,10 @@ def phase_serve_ssm(torch, arch, long_prompts):
     """An SSM or hybrid config at full width and depth: the contiguous
     serve of 12 requests (two with the given long prompts), every prefill
     chunk through ``ssd_scan`` in every SSM layer and every decode step
-    through ``decode_attention`` in every attention layer; then a profile
-    of one decode megastep and one prefill chunk, and the tap harvest (no
-    probe is trained on it: the weights are random, and the probe trainer
-    runs on granite's and trail-llama's taps). Returns the serve's
-    launches."""
+    through ``decode_attention`` in every attention layer; then the tap
+    harvest (no probe is trained on it: the weights are random, and the
+    probe trainer runs on granite's and trail-llama's taps). Returns the
+    serve's launches."""
     from repro_torch.config import KIND_HYBRID, KIND_SSM
     cfg, model, pred = _load(torch, arch)
     reqs = _requests(cfg, 10, 0, long_prompts=long_prompts)
@@ -2860,12 +2498,6 @@ def phase_serve_ssm(torch, arch, long_prompts):
     if launches["decode_attention"] != n_attn * steps:
         fail(f"decode_attention ran {launches['decode_attention']} times "
              f"for {steps} decode steps of {n_attn} attention layers")
-    gc.collect()
-    torch.cuda.empty_cache()
-    cache = model.init_cache(16, 1024)
-    phase_profile(torch, model, cache)
-    _check_cache_finite(torch, cache)
-    del cache
     gc.collect()
     torch.cuda.empty_cache()
     harvest_taps(torch, cfg, model, n_batches=8, seed=2)
@@ -2974,21 +2606,7 @@ def phase_train_ssm(torch):
     if launches["ssd_scan"] != 2 * cfg.num_layers * SSM_TRAIN_STEPS:
         fail(f"ssd_scan launched {launches['ssd_scan']} times in "
              f"{SSM_TRAIN_STEPS} steps, not {2 * cfg.num_layers} per step")
-
-    import numpy as np
-    from repro_torch.training import optimizer as opt
-    from repro_torch.training.train import make_train_step
-    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=4,
-                           total_steps=SSM_TRAIN_STEPS)
-    step = make_train_step(model, ocfg)
-    state = opt.init(ocfg, params)
-    batch = next(batches(DataConfig(vocab=cfg.vocab_size, seq_len=512,
-                                    batch=8, max_out=448, seed=9), 1))
-    batch = {k: torch.from_numpy(np.asarray(batch[k])).to("cuda")
-             for k in ("tokens", "labels")}
-    _profile(torch, cfg.name, "train step 8 x 512",
-             lambda: step(params, state, batch))
-    del model, params, state, step
+    del model, params
     gc.collect()
     torch.cuda.empty_cache()
     ssd_train_split(torch, cfg)
@@ -3043,7 +2661,6 @@ SERVE_CLI_RUNS = (  # label, argv, kernels the run must launch
 
 
 WHISPER_ROWS = 16          # encoder rows of phase_serve_whisper's parity
-MOE_ANNOTATIONS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
 
 
 def phase_serve_whisper(torch):
@@ -3223,11 +2840,9 @@ def phase_serve_moe(torch):
     requests paged (both paged kernels) and contiguous
     (``decode_attention``), 12 of 12 each; check that ``moe_mlp`` makes no
     host synchronisation (``torch.cuda.set_sync_debug_mode("error")``) at
-    a decode step's and a prefill chunk's shape; profile one decode
-    megastep and one prefill chunk, their device time split into the
-    attention kernels and the MoE's router, dispatch, expert products and
-    combine; then olmoe-smoke in float32 on the card against the CPU
-    (``phase_reference``). Returns the launches of the two serves."""
+    a decode step's and a prefill chunk's shape; then olmoe-smoke in
+    float32 on the card against the CPU (``phase_reference``). Returns
+    the launches of the two serves."""
     from repro_torch.models import moe as moe_mod
     cfg, model, pred = _load(torch, "olmoe-1b-7b")
     reqs = _requests(cfg, 12, 0)
@@ -3267,33 +2882,12 @@ def phase_serve_moe(torch):
         if not ok:
             fail("moe_mlp: non-finite output")
 
-    saved = {n: getattr(moe_mod, n.split(".")[1]) for n in MOE_ANNOTATIONS}
-
-    def labelled(name, fn):
-        def run(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return run
-
-    for name, fn in saved.items():
-        setattr(moe_mod, name.split(".")[1], labelled(name, fn))
-    try:
-        cache = model.init_cache(16, 448, kv_layout="paged", page_size=16)
-        cache["block_table"].copy_(torch.arange(
-            1, 1 + 16 * 28, dtype=torch.int32, device="cuda").reshape(16, 28))
-        phase_profile(torch, model, cache, MOE_ANNOTATIONS)
-    finally:
-        for name, fn in saved.items():
-            setattr(moe_mod, name.split(".")[1], fn)
-    del cache, model, pred
+    del model, pred
     gc.collect()
     torch.cuda.empty_cache()
     phase_reference(torch, (("olmoe-1b-7b", "paged"),
                             ("olmoe-1b-7b", "contig")))
     return served
-
-
-QWEN_PROFILE_LEN = 576     # phase_profile's 300 + 256 + 4 positions, rounded
 
 
 def phase_serve_qwen_int8(torch):
@@ -3308,8 +2902,7 @@ def phase_serve_qwen_int8(torch):
     contiguous (``probe_interval=4``, ``max_batch=16``): 12 of 12, every
     decode step through the int8 ``decode_attention`` (64 launches a
     step, no float launch), peak memory and the cache's bytes in int8
-    against bf16 at the run's ``max_len`` logged; then one decode
-    megastep and one prefill chunk profiled. Returns the serve's
+    against bf16 at the run's ``max_len`` logged. Returns the serve's
     launches."""
     from repro_torch.serving.kv_cache import bytes_for_context
     phase_reference(torch, (("qwen1.5-32b", "contig"),), kv_quant=True)
@@ -3340,11 +2933,7 @@ def phase_serve_qwen_int8(torch):
             or launches["decode_attention"]):
         fail(f"qwen1.5-32b int8: decode launches {launches} for {steps} "
              f"steps")
-    gc.collect()
-    torch.cuda.empty_cache()
-    cache = model.init_cache(16, QWEN_PROFILE_LEN)
-    phase_profile(torch, model, cache)
-    del cache, model, pred
+    del model, pred
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3694,7 +3283,6 @@ def dryrun_card_case(torch, rep, seed=0):
         f"decode_attention {launches['decode_attention']}, probe_update "
         f"{launches['probe_update']}")
     check_recorded(ref, calls, f"{arch} {shape}")
-    _profile(torch, arch, f"serve step at {shape}, B={B}", one_step)
     if (arch, shape) in DRYRUN_TIMED:
         time_global_layer(torch, cfg, calls, f"{arch} {shape}", S)
     del model, cache, logits, calls
@@ -3832,94 +3420,7 @@ def phase_serve_step(torch, cfg, model):
     if (launches["probe_update"] != 8
             or launches["decode_attention"] != 8 * cfg.num_layers):
         fail(f"serve_step launches {launches}")
-    _profile(torch, cfg.name, f"fused serve step, B={B}",
-             lambda: serve_step(cache, tok, q))
-    return launches, cache
-
-
-def phase_profile(torch, model, cache, annotations=()):
-    """Where a step's time goes: one decode megastep (k=4, 16 rows at ~300
-    tokens of context) and one prefill chunk (256 wide, 2 of 16 rows
-    active) of a served model, on ``cache`` (16 rows, empty). Wall time is
-    the median of three runs on the host clock, without the profiler; one
-    run under ``torch.profiler`` then gives the device busy time (the sum
-    of the kernels' durations, one stream) and the kernels that take it.
-    Busy over wall is the device's busy share; the rest of the wall time
-    the device sits idle. ``annotations`` name ``record_function`` ranges
-    whose device time is reported beside the attention kernels'."""
-    B, dev = 16, "cuda"
-    name = model.cfg.name
-    g = torch.Generator(device=dev).manual_seed(3)
-    vocab = model.cfg.vocab_size
-    tokens = torch.randint(1, vocab, (B, 300), generator=g, device=dev,
-                           dtype=torch.int32)
-    logits, cache, _, _ = model.prefill_chunk(cache, tokens)
-    last = logits.argmax(-1).to(torch.int32)[:, None]
-    chunk = torch.randint(1, vocab, (B, 256), generator=g, device=dev,
-                          dtype=torch.int32)
-    valid = torch.zeros((B, 256), dtype=torch.bool, device=dev)
-    valid[:2, :100] = True
-    cases = {"decode megastep k=4, B=16":
-             lambda: model.decode_multi(cache, last, k=4),
-             "prefill chunk 16x256, 2 rows active":
-             lambda: model.prefill_chunk(cache, chunk, valid)}
-    for label, fn in cases.items():
-        _profile(torch, name, label, fn, annotations)
-
-
-def _profile(torch, name, label, fn, annotations=()):
-    """Wall time of ``fn`` (the median of three runs on the host clock,
-    without the profiler, after a warm run), then one run under
-    ``torch.profiler``: the device busy time (the sum of the kernels'
-    durations, one stream), the kernel launches and the kernels that take
-    the time (the six largest, and every kernel of this repository)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()                                    # warm
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls.append(1e6 * (time.perf_counter() - t0))
-    wall_us = sorted(walls)[1]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # a record_function range also shows on the device's timeline, as a
-    # span over its kernels: only kernels count as busy time
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and e.name not in annotations]
-    if not kernels:
-        log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms; the "
-            f"profiler saw no device events (busy share not measured)")
-        return
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    log(f"[profile] {name} {label}: wall {wall_us / 1e3:.3f} ms, device "
-        f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
-        f"{len(kernels)} kernel launches")
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-    for i, (kname, us) in enumerate(ranked):    # the top 6 and our kernels
-        if i < 6 or re.search(PORT_KERNELS, kname):
-            log(f"[profile]   {100 * us / busy:5.1f}% {us / 1e3:8.3f} ms "
-                f"{kname[:90]}")
-    if annotations:
-        parts = {"attention kernels": sum(
-            us for kname, us in by_name.items()
-            if re.search(PORT_KERNELS, kname))}
-        for a in annotations:
-            parts[a] = sum(e.device_time_total for e in prof.events()
-                           if e.name == a and e.device_type == DeviceType.CPU)
-        parts["the rest"] = busy - sum(parts.values())
-        log(f"[profile]   split: " + ", ".join(
-            f"{k} {us / 1e3:.3f} ms ({100 * us / busy:.1f}%)"
-            for k, us in parts.items()))
+    return launches
 
 
 def main():
@@ -3933,15 +3434,6 @@ def main():
         import repro_torch  # noqa: F401
     except ImportError as e:
         fail(f"the repro_torch package is not beside this script: {e}")
-    if sys.argv[1:2] == ["--compare-decode"]:
-        compare_decode(torch, sys.argv[2:])
-        return
-    if sys.argv[1:2] == ["--compare-ssd"]:
-        compare_ssd_builds(torch, sys.argv[2:])
-        return
-    if sys.argv[1:2] == ["--compare-probe"]:
-        compare_probe_builds(torch, sys.argv[2:])
-        return
     phase_build()
     worst = phase_check(torch)
     worst["flash_attention"] = phase_check_flash(torch)
@@ -3956,11 +3448,7 @@ def main():
     torch.cuda.empty_cache()
     cfg, model, pred = _load(torch, "gemma2-9b")
     gemma2 = phase_serve_gemma2(torch, cfg, model, pred)
-    step_launches, cache = phase_serve_step(torch, cfg, model)
-    del cache
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_profile(torch, model, model.init_cache(16, 1024))
+    step_launches = phase_serve_step(torch, cfg, model)
     gc.collect()
     torch.cuda.empty_cache()
     phase_long_forward(torch, cfg, model)

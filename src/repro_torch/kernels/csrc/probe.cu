@@ -71,11 +71,6 @@
 // times). Clusters of 7 or 8 CTAs fit only 15 at a time at one CTA an
 // SM, so at hid 512 the plan takes clusters of 6 on 96 SMs.
 //
-// Built with -DPROBE_STAMPS (chip_smoke.py --compare-probe does), thread
-// 0 of every CTA also writes the global timer at each phase of the call
-// (the Stamp enum) into probe_stamps, which probe_take_stamps reads; the
-// kernel's library has none of it.
-//
 // Plain C interface for ctypes; the entries return a CUDA error code.
 
 #include <cooperative_groups.h>
@@ -104,28 +99,6 @@ constexpr int kTapVecs = 8;               // 16-byte tap loads a thread holds
 constexpr int kTapRegs = 32;              // or scalar ones
 constexpr size_t kMaxSmem = 232448;       // 227 KB, a CTA's most
 constexpr size_t kOnePerSm = 120 * 1024;  // more than half an SM's
-
-#ifdef PROBE_STAMPS
-// The phases a CTA stamps (its first column block's and row tile's): its
-// start; its tap and w1 requests issued; the tap staged; the w1 tile
-// multiplied; the cluster barrier after the partial h's exchange passed;
-// its partial logits written; the grid barrier passed; its rows filtered.
-enum Stamp { kStart, kIssued, kStaged, kStreamed, kClustered, kLogits,
-             kGridSynced, kFiltered, kStamps };
-constexpr int kStampCtas = 1024;
-__device__ unsigned long long probe_stamps[kStampCtas * kStamps];
-
-__device__ __forceinline__ void stamp(int phase) {
-  const int cta = blockIdx.y * gridDim.x + blockIdx.x;
-  if (threadIdx.x != 0 || cta >= kStampCtas) return;
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  probe_stamps[cta * kStamps + phase] = t;
-}
-#define STAMP(phase) stamp(phase)
-#else
-#define STAMP(phase) ((void)0)
-#endif
 
 // Dynamic shared memory of a CTA: per stage the w1 rows, the tap rows
 // (RT floats each) and an mbarrier; then the warps' partial sums, the
@@ -433,7 +406,6 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
   const int rg = slot / M::kSD, dgrp = warp * M::kSD + slot % M::kSD;
   const bool tma = hid % 4 == 0;
   const bool vec = d % Tap::V == 0 && dslice % Tap::V == 0;
-  STAMP(kStart);
   auto slice_rows = [&](int p, int& d0) {
     d0 = (p * cs + rank) * dslice;
     return max(0, min(dslice, d - d0));
@@ -481,7 +453,6 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
     load_tile(&map, false, w1, w_s, bar0, stages, d0_first, rows_first,
               hid, kCols * blockIdx.y);
   }
-  STAMP(kIssued);
 
   int loads = 1;
   const int nrt = (B + RT - 1) / RT;
@@ -518,7 +489,6 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
           tb.store(vec, tap_s, base, nel);
         }
         __syncthreads();
-        if (first_cb && rt == 0 && p == 0) STAMP(kStaged);
         // each stage as it lands, kRows rows a thread
         const uint32_t parity = (loads - 1) & 1;
         const float4* w4 = reinterpret_cast<const float4*>(w_s) + cg;
@@ -533,7 +503,6 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
         }
       }
       const bool first = first_cb && rt == 0;
-      if (first) STAMP(kStreamed);
       // the CTA's partial h: a warp's d groups (lanes 8 apart) by
       // shuffles, then the warps in order
 #pragma unroll
@@ -572,7 +541,6 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
       cluster_arrive();
       if (first) my_prior = prior_of(my_qp, t_s, k);
       cluster_wait();
-      if (first) STAMP(kClustered);
       const int mine = rank < nrows ? (nrows - rank + cs - 1) / cs : 0;
       for (int idx = tid; idx < mine * kCols; idx += kThreads) {
         const int r = rank + cs * (idx / kCols), col = idx % kCols;
@@ -595,26 +563,17 @@ __global__ void __launch_bounds__(kThreads, 1) probe_update_kernel(
         plog[((size_t)cb * B + r0 + rank + cs * i) * k + c] =
             (lg[0] + lg[1]) + (lg[2] + lg[3]);
       }
-      if (first) STAMP(kLogits);
     }
   }
 
   // the partial logits meet at a grid barrier, after which every warp of
   // the grid may filter a row
   cg::this_grid().sync();
-  STAMP(kGridSynced);
   const int step = kWarps * cs * gridDim.y;
   for (int b = my_row; b < B; b += step)
     filter_row(plog, q_prev, b2_s, t_s, q_new, p_out, B, k, ncb, b,
                b == my_row, my_prior);
-#ifdef PROBE_STAMPS
-  __syncthreads();
-  STAMP(kFiltered);
-#endif
 }
-
-// The launch floor, timed beside the probe: an empty kernel.
-__global__ void probe_floor_kernel() {}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -742,30 +701,6 @@ extern "C" int probe_update_launch(const void* tap, const void* w1,
   return (int)cudaErrorInvalidValue;
 }
 
-// The launch floor on the probe's grid and clusters with `smem` bytes of
-// dynamic shared memory, launched as a call is (cooperative): an empty
-// kernel.
-extern "C" int probe_floor_launch(int cluster, int clusters, int smem,
-                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cluster < 1 || cluster > kMaxCluster || clusters < 1 || smem < 0 ||
-      (size_t)smem > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        probe_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
-  cudaLaunchAttribute attr[2];
-  const cudaLaunchConfig_t cfg = cluster_config(
-      dim3(cluster, clusters, 1), cluster, smem, s, true, attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, probe_floor_kernel);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
 // How many clusters of 1 to 8 CTAs the current card holds at once at one
 // CTA an SM (kOnePerSm bytes of shared memory or more), into out[0..7].
 extern "C" int probe_active_clusters(int* out) {
@@ -780,19 +715,3 @@ extern "C" int probe_active_clusters(int* out) {
   }
   return (int)e;
 }
-
-#ifdef PROBE_STAMPS
-// The stamps of the calls since the last take (n values: kStamps a CTA, in
-// the order of blockIdx.y * cluster + blockIdx.x; 0 where not written),
-// into out; then zeroes them.
-extern "C" int probe_take_stamps(unsigned long long* out, int n) {
-  if (n < 0 || n > kStampCtas * kStamps) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaDeviceSynchronize();
-  if (e == cudaSuccess)
-    e = cudaMemcpyFromSymbol(out, probe_stamps, n * sizeof(*out));
-  void* dev = nullptr;
-  if (e == cudaSuccess) e = cudaGetSymbolAddress(&dev, probe_stamps);
-  if (e == cudaSuccess) e = cudaMemset(dev, 0, sizeof(probe_stamps));
-  return (int)e;
-}
-#endif

@@ -2,26 +2,18 @@
 
 A tensor that lies on the CPU goes to the plain PyTorch version in
 ``ref.py`` (that is how the CPU tests run the model). A tensor on the
-``meta`` device goes to the plain version too: there it computes the
-output's shape and dtype alone and allocates nothing (that is how the dry
-run, ``launch.dryrun``, runs a step at full size). A CUDA tensor goes to
-the hand-written kernel, which launches or raises: nothing here falls
-back from a kernel to its plain version, and nothing computes on meta.
-The kernels' launch counts are ``launches`` (reset with
-``reset_launches``). Each kernel call opens the detail span
-``kernel.<key of launches>`` (``repro_torch.metrics.spans``) around its
-binding: the checks, the arguments and the launch, on the host.
-
-``META_KERNEL`` lets a caller stand in for a kernel call on meta: set to
-``fn(plain, *args, **kwargs)``, each such call returns ``fn``'s result.
-The dry run's footprint count uses it to count a call's outputs alone,
-which is all that the kernel allocates on the card, where the plain
-version holds float32 copies of whole caches on its way.
-"""
+``meta`` device gets empty meta outputs of the shapes and dtypes the
+plain version returns, and nothing runs: that is how the dry run,
+``launch.dryrun``, runs a step at full size and counts what a kernel
+allocates on the card, its outputs alone. A CUDA tensor goes to the
+hand-written kernel, which launches or raises: nothing here falls back
+from a kernel to its plain version. The kernels' launch counts are
+``launches`` (reset with ``reset_launches``). Each kernel call opens the
+detail span ``kernel.<key of launches>`` (``repro_torch.metrics.spans``)
+around its binding: the checks, the arguments and the launch, on the
+host."""
 
 from __future__ import annotations
-
-from contextvars import ContextVar
 
 import torch
 
@@ -37,33 +29,18 @@ from repro_torch.metrics.spans import detail
 launches = build.launches
 reset_launches = build.reset_launches
 
-#: devices whose tensors take the plain versions
-_PLAIN_DEVICES = ("cpu", "meta")
-
-#: the stand-in for a kernel call on meta (see the module docstring)
-META_KERNEL: ContextVar = ContextVar("META_KERNEL", default=None)
-
-
-def _plain(fn, *args, **kwargs):
-    """The plain version ``fn`` on CPU or meta tensors (on meta through
-    ``META_KERNEL`` when one is set); ``args[0]`` is the tensor the
-    wrapper dispatched on."""
-    hook = META_KERNEL.get()
-    if hook is None or args[0].device.type != "meta":
-        return fn(*args, **kwargs)
-    return hook(fn, *args, **kwargs)
-
-
 def decode_attention(q, k, v, kpos, q_pos, *, window=0, softcap=0.0,
                      k_scale=None, v_scale=None, scale=None):
     """Single-step decode attention against a contiguous or ring slot
     cache; an int8 cache comes with its per-(slot, KV head) float32
     scales ``k_scale``/``v_scale``. Each attention wrapper takes the
     score ``scale`` (None: head_dim**-0.5)."""
-    if q.device.type in _PLAIN_DEVICES:
-        return _plain(ref.decode_attention_ref, q, k, v, kpos, q_pos,
-                      window=window, softcap=softcap, k_scale=k_scale,
-                      v_scale=v_scale, scale=scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, kpos, q_pos, window=window,
+                                        softcap=softcap, k_scale=k_scale,
+                                        v_scale=v_scale, scale=scale)
     with detail("kernel.decode_attention_int8" if k.dtype == torch.int8
                 else "kernel.decode_attention"):
         return _dec.decode_attention(q, k, v, kpos, q_pos, window=window,
@@ -74,10 +51,12 @@ def decode_attention(q, k, v, kpos, q_pos, *, window=0, softcap=0.0,
 def paged_decode_attention(q, k_pages, v_pages, kpos_pages, block_table,
                            q_pos, *, window=0, softcap=0.0, scale=None):
     """Single-step decode attention against a paged KV cache."""
-    if q.device.type in _PLAIN_DEVICES:
-        return _plain(ref.paged_decode_attention_ref, q, k_pages, v_pages,
-                      kpos_pages, block_table, q_pos, window=window,
-                      softcap=softcap, scale=scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_ref(
+            q, k_pages, v_pages, kpos_pages, block_table, q_pos,
+            window=window, softcap=softcap, scale=scale)
     with detail("kernel.paged_decode_attention"):
         return _paged.paged_decode_attention(
             q, k_pages, v_pages, kpos_pages, block_table, q_pos,
@@ -88,10 +67,12 @@ def paged_decode_attention_multi(q, k_pages, v_pages, kpos_pages,
                                  block_table, q_pos, *, window=0,
                                  softcap=0.0, scale=None):
     """Multi-query decode attention against a paged KV cache."""
-    if q.device.type in _PLAIN_DEVICES:
-        return _plain(ref.paged_decode_attention_multi_ref, q, k_pages,
-                      v_pages, kpos_pages, block_table, q_pos, window=window,
-                      softcap=softcap, scale=scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_multi_ref(
+            q, k_pages, v_pages, kpos_pages, block_table, q_pos,
+            window=window, softcap=softcap, scale=scale)
     with detail("kernel.paged_decode_attention_multi"):
         return _paged.paged_decode_attention_multi(
             q, k_pages, v_pages, kpos_pages, block_table, q_pos,
@@ -101,8 +82,11 @@ def paged_decode_attention_multi(q, k_pages, v_pages, kpos_pages,
 def probe_update(tap, w1, b1, w2, b2, q_prev, T):
     """Fused TRAIL probe step: probe MLP, softmax and one Bayes-filter
     step. Returns (q_new, p), both float32."""
-    if tap.device.type in _PLAIN_DEVICES:
-        return _plain(ref.probe_update_ref, tap, w1, b1, w2, b2, q_prev, T)
+    if tap.device.type == "meta":
+        return (torch.empty_like(q_prev, dtype=torch.float32),
+                torch.empty_like(q_prev, dtype=torch.float32))
+    if tap.device.type == "cpu":
+        return ref.probe_update_ref(tap, w1, b1, w2, b2, q_prev, T)
     with detail("kernel.probe_update"):
         return _probe.probe_update(tap, w1, b1, w2, b2, q_prev, T)
 
@@ -111,9 +95,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None):
     """Full-sequence attention (training and profiling forwards).
     q: (B,S,H,hd); k/v: (B,S,KH,hd) -> (B,S,H,hd) in q's dtype."""
-    if q.device.type in _PLAIN_DEVICES:
-        return _plain(ref.flash_attention_ref, q, k, v, causal=causal,
-                      window=window, softcap=softcap, scale=scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
     with detail("kernel.flash_attention"):
         return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                       softcap=softcap, scale=scale)
@@ -125,9 +111,12 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, *, chunk):
     (B,L,nh,hp), final state (B,nh,hp,N)), both float32. The kernel
     raises on an input that requires a gradient: ``models.ssm.SSDScan``
     gives the scan its gradient."""
-    if x.device.type in _PLAIN_DEVICES:
-        return _plain(ref.ssd_scan_ref, x, dt, A, Bm, Cm, init_state,
-                      chunk=chunk)
+    if x.device.type == "meta":
+        B, _, nh, hp = x.shape
+        return (torch.empty_like(x, dtype=torch.float32),
+                x.new_empty((B, nh, hp, Bm.shape[-1]), dtype=torch.float32))
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, init_state, chunk=chunk)
     with detail("kernel.ssd_scan"):
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state, chunk=chunk)
 
@@ -137,8 +126,9 @@ def ssm_state_update(state, x, dt, A, Bm, Cm, D, keep):
     state: (B,nh,hp,N); x: (B,nh,hp); dt: (B,nh) post-softplus; A, D:
     (nh,); Bm/Cm: (B,N); keep: (B,) bool -> y (B,nh,hp) float32. Rows
     where ``keep`` is False keep their state bit for bit and get y = 0."""
-    if state.device.type in _PLAIN_DEVICES:
-        return _plain(ref.ssm_state_update_ref, state, x, dt, A, Bm, Cm, D,
-                      keep)
+    if state.device.type == "meta":
+        return torch.empty_like(x, dtype=torch.float32)
+    if state.device.type == "cpu":
+        return ref.ssm_state_update_ref(state, x, dt, A, Bm, Cm, D, keep)
     with detail("kernel.ssm_state_update"):
         return _ssm_upd.ssm_state_update(state, x, dt, A, Bm, Cm, D, keep)

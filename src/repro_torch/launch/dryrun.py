@@ -49,7 +49,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.config import (ARCH_IDS, INPUT_SHAPES, get_config,
                                 shape_applies)
-from repro_torch.kernels import ops
 from repro_torch.launch import analysis
 from repro_torch.launch.mesh import MESHES, Mesh, make_host_mesh, n_chips
 from repro_torch.launch.sharding import (batch_specs, cache_specs,
@@ -84,14 +83,13 @@ class Footprint(TorchDispatchMode):
     storages all report ``data_ptr() == 0``, so each is keyed by its
     Python object, which lives exactly as long as the storage, and
     ``weakref.finalize`` drops it. In-place ops and views make no new
-    storage. ``kernel_call`` is the ``ops.META_KERNEL`` stand-in: a
-    kernel's plain version runs uncounted and only its outputs count.
+    storage. A kernel call on meta makes its outputs alone (``ops``), as
+    on the card.
     """
 
     def __init__(self, known=()):
         super().__init__()
         self._seen = {id(t.untyped_storage()) for t in _tensors(known)}
-        self._paused = 0
         self.live = 0
         self.peak = 0
         self.output = 0     # set by ``run_step``
@@ -113,21 +111,9 @@ class Footprint(TorchDispatchMode):
             self.live += n
             self.peak = max(self.peak, self.live)
 
-    def kernel_call(self, plain, *args, **kwargs):
-        """A kernel's call on meta: its plain version gives the outputs,
-        and only they are counted."""
-        self._paused += 1
-        try:
-            out = plain(*args, **kwargs)
-        finally:
-            self._paused -= 1
-        self.count(out)
-        return out
-
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not self._paused:
-            self.count(out)
+        self.count(out)
         return out
 
 
@@ -138,23 +124,19 @@ def run_step(model: Model, spec: dict) -> Footprint:
     fp = Footprint(known=[spec[k] for k in ("params", "opt", "cache",
                                             "batch") if k in spec])
     batch = spec["batch"]
-    token = ops.META_KERNEL.set(fp.kernel_call)
-    try:
-        with fp:
-            if spec["mode"] == "train":
-                out = make_train_step_for(model)(spec["params"], spec["opt"],
-                                                 batch)
-            elif spec["mode"] == "prefill":
-                frontend = {k: v for k, v in batch.items() if k != "tokens"}
-                out = make_prefill_step(model)(spec["cache"], batch["tokens"],
-                                               **frontend)
-            else:
-                out = make_serve_step(model)(spec["cache"], batch["tokens"],
-                                             batch["q_prev"])
-        fp.output = fp.live
-        del out
-    finally:
-        ops.META_KERNEL.reset(token)
+    with fp:
+        if spec["mode"] == "train":
+            out = make_train_step_for(model)(spec["params"], spec["opt"],
+                                             batch)
+        elif spec["mode"] == "prefill":
+            frontend = {k: v for k, v in batch.items() if k != "tokens"}
+            out = make_prefill_step(model)(spec["cache"], batch["tokens"],
+                                           **frontend)
+        else:
+            out = make_serve_step(model)(spec["cache"], batch["tokens"],
+                                         batch["q_prev"])
+    fp.output = fp.live
+    del out
     return fp
 
 

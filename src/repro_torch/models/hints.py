@@ -1,16 +1,13 @@
-"""Sharding hints (the reference ``repro.models.hints``).
+"""The sharding hints' spec rule (the reference ``repro.models.hints``).
 
 In the reference, ``hint`` annotates an activation with a sharding
-constraint when a mesh is active, and is a no-op outside one. The port
-never sets an ambient mesh (it runs on one card), so ``hint`` returns its
-argument and ``data_shards`` is 1: what the reference does outside a mesh.
-The port's models call neither.
-
-``clamp`` is the rule a hint applies under a mesh, kept as one pure
-function: the token ``BATCH`` resolves to ("pod","data") or ("data",)
-depending on the mesh's axes, and an axis is kept for a dim only when the
-mesh has it and the dim is at least its size and divisible by it. The
-sharding rules (``launch.sharding``) clamp their specs with it.
+constraint when a mesh is active. The port never sets an ambient mesh (it
+runs on one card), so its models give no hints, and only the rule a hint
+applies under a mesh is kept, as one pure function, ``clamp``: the token
+``BATCH`` resolves to ("pod","data") or ("data",) depending on the mesh's
+axes, and an axis is kept for a dim only when the mesh has it and the dim
+is at least its size and divisible by it. The sharding rules
+(``launch.sharding``) clamp their specs with it.
 """
 
 from __future__ import annotations
@@ -49,14 +46,3 @@ def clamp(shape, spec, sizes: Mapping[str, int]) -> tuple:
         out.append(ax)
     return tuple(out)
 
-
-def data_shards() -> int:
-    """Number of batch-sharding ways in the ambient mesh: 1, as the port
-    sets none."""
-    return 1
-
-
-def hint(x, *spec):
-    """A sharding hint: ``x`` itself, as the port sets no mesh."""
-    del spec
-    return x

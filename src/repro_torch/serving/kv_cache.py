@@ -49,15 +49,7 @@ from repro_torch.config import (KIND_ATTN, KIND_HYBRID, KIND_LOCAL, KIND_MOE,
                                 KIND_SSM, KIND_SSM_MOE, SSM_KINDS,
                                 ModelConfig)
 from repro_torch.models.layers import torch_dtype
-
-
-def ssm_dims(cfg: ModelConfig):
-    """Derived SSM sizes: (inner dim, n_heads, conv channels)."""
-    d_in = cfg.ssm_expand * cfg.d_model
-    nh = d_in // cfg.ssm_head_dim
-    bc = 2 * cfg.ssm_groups * cfg.ssm_state
-    conv_ch = d_in + bc
-    return d_in, nh, conv_ch
+from repro_torch.models.ssm import ssm_dims
 
 
 def dtype_bytes(cfg: ModelConfig) -> int:

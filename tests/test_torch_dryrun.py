@@ -160,10 +160,8 @@ def test_footprint_counts_new_storages():
         c = torch.cat([b, b])                           # +800 -> 1200
         del b, v, c                                     # freed -> 0
         d = a.double()                                  # +800
-        e = fp.kernel_call(lambda x: (x * 3).sum(0, keepdim=True).expand(4),
-                           a)                           # output alone: +4
-    assert fp.peak == 1200 and fp.live == 804
-    del d, e
+    assert fp.peak == 1200 and fp.live == 800
+    del d
     assert fp.live == 0
 
 
@@ -207,10 +205,22 @@ def test_ops_on_meta_give_shapes_and_launch_nothing(name):
         return torch.randn(shape).to(dtype)
 
     ops.reset_launches()
-    got, want = KERNELS[name](meta), KERNELS[name](cpu)
+    args = []
+
+    def made(*shape, **kw):
+        args.append(meta(*shape, **kw))
+        return args[-1]
+
+    KERNELS[name](made)             # the inputs, made before the count
+    given = iter(args)
+    with dryrun.Footprint(known=args) as fp:
+        got = KERNELS[name](lambda *shape, **kw: next(given))
+    want = KERNELS[name](cpu)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     assert [(t.device.type, t.shape, t.dtype) for t in got] == [
         ("meta", w.shape, w.dtype) for w in want]
+    # a kernel allocates its outputs alone
+    assert fp.peak == sum(t.untyped_storage().nbytes() for t in got)
     assert not any(ops.launches.values())
-    assert "meta" in ops.__doc__ and "allocates nothing" in ops.__doc__
+    assert "meta" in ops.__doc__ and "nothing runs" in ops.__doc__

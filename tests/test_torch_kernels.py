@@ -421,8 +421,8 @@ PROBE_SPLIT = [  # B, d, hid, k, tap dtype, fallback
 ]
 PROBE_FAULTS = ("relu", "slice", "bias", "tail")
 #: clusters of 1-8 CTAs an H100 SXM holds at once at one CTA an SM, as
-#: cudaOccupancyMaxActiveClusters reads them on the card (chip_smoke.py
-#: prints them), which the kernel wrapper asks for at run time
+#: cudaOccupancyMaxActiveClusters reads them on the card, which the kernel
+#: wrapper asks for at run time (``probe.active_clusters``)
 H100_ACTIVE = (132, 66, 39, 30, 22, 17, 15, 15)
 _PROBE_SPLIT_CACHE = {}
 
