@@ -10,9 +10,9 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
 2. build every CUDA kernel from the sources in this checkout (one ``nvcc``
    per source, all at once), print the build time and what ptxas reports,
    and count the ``HGMMA`` (wgmma) instructions ``cuobjdump -sass`` finds
-   in the ``flash_attention``, ``paged_decode_attention`` and
-   ``ssd_scan`` libraries (none fails: their bf16 kernels run on the
-   tensor cores);
+   in the ``flash_attention``, ``paged_decode_attention``, ``ssd_scan``
+   and ``moe_experts`` libraries (none fails: their bf16 kernels run on
+   the tensor cores);
 3. hold each kernel against its plain PyTorch version on the card, float32
    and bfloat16, with inactive (q_pos = -1) rows and a logit softcap:
    the paged kernels at the shapes of ``granite-3-8b``, ``trail-llama``
@@ -63,7 +63,19 @@ Phases, in order (any failure exits non-zero; nothing is passed over):
    inactive rows' state bit for bit and their y 0, live rows' state
    within 1e-6 and y within 1e-5 of scale (y's sum over N in another
    order), then timed as CUDA graphs of 30 calls beside its bound (the
-   live rows' state read and written once) and the plain version.
+   live rows' state read and written once) and the plain version;
+   ``moe_experts`` (``phase_moe_experts``) at the MoE layers of
+   ``granite-4.0-h-small`` (72 experts of 768, top 10) and
+   ``olmoe-1b-7b`` (64 of 1024, top 8), dropless, in bf16: decode over
+   64 rows with 1, 6 and 64 live (and 3 or 14), a 64 x 64 prefill chunk
+   holding 100 tokens and a full 16 x 256 one, the live entries within
+   2e-2 of scale of the plain version, the experts-read tally equal to
+   the experts the live tokens route to; ``moe_mlp`` with the live mask
+   with dead positions exactly 0, live ones within 2e-2 of the sort
+   dispatch over the live tokens alone, no host sync, and a captured
+   graph's replay bit-equal to the eager call; timed beside its bound
+   (the hit experts' weights read once), the plain version and the three
+   ``torch.bmm`` over the sort dispatch's dense buffer.
    Tolerances, per
    element: float32 |kernel - plain| <= 1e-5; bfloat16 at most 2e-2 and
    at most one bf16 rounding of the output, 2**-7 * |plain| + 1e-4 (both
@@ -262,8 +274,10 @@ import contextlib
 import dataclasses
 import gc
 import io
+import itertools
 import json
 import math
+import random
 import re
 import subprocess
 import sys
@@ -788,7 +802,8 @@ def phase_build():
         for kernel, usage in ptxas_usage(report):
             log(f"[build] {name}: {kernel}: {usage}")
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    for name in ("flash_attention", "paged_decode_attention", "ssd_scan"):
+    for name in ("flash_attention", "paged_decode_attention", "ssd_scan",
+                 "moe_experts"):
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(build.library_path(name))],
                               capture_output=True, text=True, check=True)
@@ -1098,6 +1113,243 @@ def phase_ssm_update(torch):
             first = dict(ms=min(ms, ms2), plain_ms=plain_ms, library_ms=None,
                          bound_ms=b_ms, bound_by=by)
         del case, args, before, got, want
+    return worst, first
+
+
+#: the dropless MoE layers of the benchmark's cells: arch, capacity factor
+MOE_MODELS = {"granite-4.0-h-small": ("granite-4.0-h-small", 7.2),
+              "olmoe-1b-7b": ("olmoe-1b-7b", 8.0)}
+MOE_CASES = [  # model, rows, positions a row, tokens that hold one, timed,
+    # dtype of the hidden states and the experts
+    ("granite-4.0-h-small", 64, 1, 1, False, "bfloat16"),
+    ("granite-4.0-h-small", 64, 1, 3, True, "bfloat16"),
+    ("granite-4.0-h-small", 64, 1, 6, True, "bfloat16"),
+    ("granite-4.0-h-small", 64, 1, 64, False, "bfloat16"),
+    ("granite-4.0-h-small", 64, 64, 100, True, "bfloat16"),
+    ("granite-4.0-h-small", 16, 256, 4096, False, "bfloat16"),
+    ("olmoe-1b-7b", 64, 1, 1, False, "bfloat16"),
+    ("olmoe-1b-7b", 64, 1, 6, False, "bfloat16"),
+    ("olmoe-1b-7b", 64, 1, 14, True, "bfloat16"),
+    ("olmoe-1b-7b", 64, 1, 64, False, "bfloat16"),
+    ("olmoe-1b-7b", 64, 64, 100, True, "bfloat16"),
+    ("olmoe-1b-7b", 16, 256, 4096, False, "bfloat16"),
+    ("olmoe-1b-7b", 64, 1, 14, False, "float32"),
+    ("olmoe-1b-7b", 64, 64, 100, False, "float32"),
+]
+#: |kernel - plain| over the largest |plain| of the live entries' rows, by
+#: dtype: in bf16 the two round the activation once each, from float32 sums
+#: taken in another order, so an element a rounding apart can differ by one
+#: bf16 step; in float32 only the order of the sums differs
+MOE_TOL = {"bfloat16": 2e-3, "float32": 1e-5}
+
+
+def moe_mutants(torch, args):
+    """The plain version with a fault the kernel could make, for the
+    error a wrong kernel reads against ``MOE_TOL``: the last 64 of the
+    gate+up reduction dropped (a K stage), the last 64 of the down
+    reduction dropped, and every entry run through the next expert."""
+    from repro_torch.kernels import ref
+    hf, wg, wu, wd, *rest = args
+
+    def cut(w):
+        w = w.clone()
+        w[:, -64:] = 0
+        return w
+
+    return {"gate+up K stage": ref.moe_experts_ref(hf, cut(wg), cut(wu), wd,
+                                                    *rest),
+            "down K stage": ref.moe_experts_ref(hf, wg, wu, cut(wd), *rest),
+            "next expert": ref.moe_experts_ref(
+                hf, *(torch.roll(w, 1, dims=0) for w in (wg, wu, wd)),
+                *rest)}
+
+
+def moe_layer(torch, arch, seed):
+    """(config, weights) of one MoE layer at full width on the card: the
+    router float32 N(0, 1/d), the experts bf16 N(0, 1/fan_in); without
+    granite-4.0-h's shared expert, which the routed path leaves alone."""
+    import types
+    from repro_torch.config import get_config
+    name, cf = MOE_MODELS[arch]
+    cfg = dataclasses.replace(get_config(name), capacity_factor=cf,
+                              shared_expert_ff=0)
+    E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape, fan_in, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * fan_in ** -0.5).to(dtype)
+
+    p = types.SimpleNamespace(
+        moe_router=draw(d, E, fan_in=d, dtype=torch.float32),
+        moe_w_gate=draw(E, d, ff, fan_in=d), moe_w_up=draw(E, d, ff, fan_in=d),
+        moe_w_down=draw(E, ff, d, fan_in=ff))
+    return cfg, p
+
+
+def moe_case(torch, cfg, B, S, n_live, seed):
+    """Hidden states (B, S, d) bf16 and the live mask: at S = 1 ``n_live``
+    rows spread over the batch, else every third row holding a prefix of
+    S/4 to S positions (seeded), until ``n_live`` tokens are placed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn((B, S, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    live = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+    if S == 1:
+        live[torch.randperm(B, generator=g, device="cuda")[:n_live], 0] = True
+        return h, live
+    rng = random.Random(seed)
+    left, rows = n_live, [b for s in range(3) for b in range(s, B, 3)]
+    for b in rows:
+        n = min(left, S if n_live == B * S else rng.randint(S // 4, S))
+        live[b, :n] = True
+        left -= n
+        if not left:
+            break
+    return h, live
+
+
+def moe_bound(cfg, hit, n_entries):
+    """Bytes: the hit experts' three weight matrices read once, each live
+    entry's token row read and its float32 output row written, its
+    activation row written and read back; operations: the three products
+    over the live entries."""
+    d, ff = cfg.d_model, cfg.d_ff
+    nbytes = hit * 3 * d * ff * 2 + n_entries * (2 * d + 4 * d + 4 * ff)
+    return bound_ms(nbytes, 6 * n_entries * d * ff, "bfloat16")
+
+
+def phase_moe_experts(torch):
+    """``moe_experts`` (the grouped expert kernel of a dropless MoE call)
+    against its plain version at the decode and prefill shapes of
+    ``MOE_CASES`` (granite-4.0-h-small and olmoe-1b-7b at full width,
+    bf16, and olmoe's float32 body): live entries' rows within
+    ``MOE_TOL`` of their largest value, where each of ``moe_mutants``
+    must read above it; then ``moe_mlp`` with
+    the live mask: dead positions exactly 0, live ones within 2e-2 of the
+    sort dispatch over the live tokens alone; no host sync under
+    ``torch.cuda.set_sync_debug_mode("error")``; a captured CUDA graph's
+    replay bit-equal to the eager call; the launch count and the
+    experts-read tally against a host count. The timed cases run as CUDA
+    graphs of 30 calls (kernel, plain, kernel) beside their bound (the hit
+    experts' weight bytes), the plain version and the three ``torch.bmm``
+    over the sort dispatch's dense (E, C, d) buffer. Returns (the worst
+    error, the first timed case's row)."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import moe_experts as kmoe
+    from repro_torch.models import moe as moe_mod
+    worst, first, layers = 0.0, None, {}
+    # one side stream for every case: each new stream that runs a matmul
+    # keeps a cuBLAS workspace of its own for the rest of the process
+    side = torch.cuda.Stream()
+    for i, (arch, B, S, n_live, timed, dtype) in enumerate(MOE_CASES):
+        if (arch, dtype) not in layers:
+            layers.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg, p = moe_layer(torch, arch, 60)
+            for name in ("moe_w_gate", "moe_w_up", "moe_w_down"):
+                setattr(p, name, getattr(p, name).to(getattr(torch, dtype)))
+            layers[arch, dtype] = cfg, p
+        cfg, p = layers[arch, dtype]
+        E, k = cfg.num_experts, cfg.experts_per_token
+        h, live = moe_case(torch, cfg, B, S, n_live, seed=70 + i)
+        h = h.to(getattr(torch, dtype))
+        T = B * S
+        hf, lf = h.reshape(T, -1), live.reshape(T)
+        top_p, top_i, _ = moe_mod.route(cfg, p.moe_router, hf)
+        entry, offsets = moe_mod.group(cfg, top_i, lf)
+        weight = top_p.reshape(-1)
+        args = (hf, p.moe_w_gate, p.moe_w_up, p.moe_w_down, entry, offsets,
+                weight, k)
+        tally = kmoe.tally(h.device)
+        tally.zero_()
+        before = build.launches["moe_experts"]
+        got = kmoe.moe_experts(*args)
+        torch.cuda.synchronize()
+        read, offered = tally.tolist()
+        hit = len(set(top_i[lf].flatten().tolist()))
+        if build.launches["moe_experts"] != before + 1 or (read, offered) \
+                != (hit, E):
+            fail(f"moe_experts {arch} {B}x{S}: launches "
+                 f"{build.launches['moe_experts'] - before}, tally "
+                 f"{read}/{offered} against {hit} hit experts of {E}")
+        want = ref.moe_experts_ref(*args)
+        rows = entry[:int(offsets[E])].long()
+        scale = float(want[rows].abs().max())
+
+        def rel(a):
+            return float((a[rows] - want[rows]).abs().max()) / scale
+
+        err, tol = rel(got), MOE_TOL[dtype]
+        worst = max(worst, err)
+        shape = (f"{arch} {B}x{S} {dtype}, {n_live} live, {hit} of {E} "
+                 f"experts hit, top {k}, d {cfg.d_model}, ff {cfg.d_ff}")
+        wrong = {name: rel(y) for name, y in moe_mutants(torch, args).items()}
+        log(f"[check] {'moe_experts':30s} {shape}: |kernel-plain| / "
+            f"max|plain| {err:.3e} (tol {tol:g}; max|plain| {scale:.4g}); "
+            f"a wrong kernel: " + ", ".join(f"{n} {v:.3e}"
+                                            for n, v in wrong.items())
+            + f"; tally {read}/{offered}")
+        if not err <= tol:
+            fail(f"moe_experts disagrees with its plain version ({shape}): "
+                 f"{err}")
+        if not min(wrong.values()) > tol:
+            fail(f"moe_experts' tolerance {tol} passes a wrong kernel "
+                 f"({shape}): {wrong}")
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, _ = moe_mod.moe_mlp(cfg, p, h, live=live)
+        except RuntimeError as e:
+            fail(f"moe_mlp synchronised with the host at {B} x {S}: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        old, _ = moe_mod.moe_tokens(cfg, p, hf[lf])
+        dead_zero = bool((y[~live] == 0).all())
+        gap = float((y[live].float() - old.float()).abs().max()) / max(
+            1.0, float(old.float().abs().max()))
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_mod.moe_mlp(cfg, p, h, live=live)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gy, _ = moe_mod.moe_mlp(cfg, p, h, live=live)
+        graph.replay()
+        torch.cuda.synchronize()
+        same = torch.equal(gy, y)
+        del graph
+        log(f"[check] {'moe_mlp(live)':30s} {shape}: dead positions 0 "
+            f"{dead_zero}, |live - sort dispatch of the live tokens| / "
+            f"scale {gap:.3e} (tol 2e-2), graph replay bit-equal {same}, "
+            f"no host sync")
+        if not (dead_zero and gap <= 2e-2 and same):
+            fail(f"moe_mlp with a live mask ({shape}): dead 0 {dead_zero}, "
+                 f"gap {gap}, graph equal {same}")
+        if timed:
+            ms = time_graph_ms(torch, lambda: kmoe.moe_experts(*args))
+            plain_ms = time_ms(torch, lambda: ref.moe_experts_ref(*args),
+                               iters=3, warmup=1)
+            xe = hf.new_zeros((E, moe_mod.expert_capacity(cfg, T),
+                               cfg.d_model))
+            lib_ms = time_graph_ms(torch, lambda: moe_mod.experts(p, xe),
+                                   iters=10, warmup=2)
+            del xe
+            ms2 = time_graph_ms(torch, lambda: kmoe.moe_experts(*args))
+            b_ms, by = moe_bound(cfg, hit, int(offsets[E]))
+            log(f"[time] {'moe_experts[' + arch + ']':40s} {shape}: kernel "
+                f"{ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"(3 bmm over the dense buffer) {lib_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({by}), {100 * b_ms / min(ms, ms2):.1f}% of "
+                f"bound")
+            if first is None:
+                first = dict(ms=min(ms, ms2), plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=by)
+        del h, live, got, want, y, old, gy
+    layers.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     return worst, first
 
 
@@ -1904,12 +2156,14 @@ def _serve(torch, cfg, model, reqs, knobs, pred):
     return launches, steps[0], steps[1]
 
 
-def _load(torch, arch, kv_quant=False):
-    """The full-size ``arch`` on the card, random weights from seed 0
-    (``kv_quant``: int8 slot caches), and its probe predictor."""
+def _load(torch, arch, **fields):
+    """The full-size ``arch`` on the card, random weights from seed 0, with
+    the config ``fields`` replaced (``kv_quant=True``: int8 slot caches),
+    and its probe predictor."""
     from repro_torch.config import get_config
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_config(arch), kv_quant=kv_quant)
+    cfg = dataclasses.replace(get_config(arch), **fields)
+    free = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(seed=0)
     torch.cuda.synchronize()
@@ -1931,7 +2185,8 @@ def _load(torch, arch, kv_quant=False):
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}"
         f"{ssm}; {n_params / 1e9:.2f} B params (matmul weights bf16) "
-        f"initialised in {time.perf_counter() - t0:.1f} s")
+        f"initialised in {time.perf_counter() - t0:.1f} s, {free / 2**30:.2f} "
+        f"GiB of device memory free before")
     return cfg, model, _probe(cfg, model)
 
 
@@ -2836,15 +3091,23 @@ def phase_serve_whisper(torch):
 def phase_serve_moe(torch):
     """olmoe-1b-7b at full width and depth (16 layers, d_model 2048, 16/16
     heads of 128, 64 experts top 8 with d_ff 1024, vocab 50304; random
-    weights from seed 0, matmul weights in bf16): serve granite's 12
+    weights from seed 0, matmul weights in bf16) at its benchmark's
+    dropless capacity factor (``MOE_MODELS``): serve granite's 12
     requests paged (both paged kernels) and contiguous
-    (``decode_attention``), 12 of 12 each; check that ``moe_mlp`` makes no
-    host synchronisation (``torch.cuda.set_sync_debug_mode("error")``) at
-    a decode step's and a prefill chunk's shape; then olmoe-smoke in
-    float32 on the card against the CPU (``phase_reference``). Returns
-    the launches of the two serves."""
+    (``decode_attention``), 12 of 12 each, every call of every MoE layer,
+    decode step or prefill chunk, through ``moe_experts``; check that
+    ``moe_mlp`` makes no host synchronisation
+    (``torch.cuda.set_sync_debug_mode("error")``) at a decode step's and a
+    prefill chunk's shape, with and without the live mask; then
+    olmoe-smoke in float32 on the card against the CPU
+    (``phase_reference``; at its capacity factor of 1.25 a call of 4
+    tokens or fewer is dropless, so the kernel's float32 body runs).
+    Returns the launches of the two serves."""
     from repro_torch.models import moe as moe_mod
-    cfg, model, pred = _load(torch, "olmoe-1b-7b")
+    from repro_torch.models.transformer import MOE_KINDS
+    cfg, model, pred = _load(torch, "olmoe-1b-7b",
+                             capacity_factor=MOE_MODELS["olmoe-1b-7b"][1])
+    n_moe = sum(k in MOE_KINDS for k in cfg.layer_kinds)
     reqs = _requests(cfg, 12, 0)
     max_len = _max_len(reqs)
     _describe(reqs, max_len)
@@ -2854,22 +3117,33 @@ def phase_serve_moe(torch):
                             ("contig", ("decode_attention",))):
         knobs = dict(mode="real", kv_layout=layout, probe_interval=4,
                      max_batch=16, max_len=max_len, page_size=16)
-        served[layout], *_ = _serve(torch, cfg, model, reqs, knobs, pred)
+        served[layout], steps, chunks = _serve(torch, cfg, model, reqs,
+                                               knobs, pred)
         for name in kernels:
             if served[layout][name] <= 0:
                 fail(f"kernel {name} never launched on olmoe's {layout} "
                      f"path")
+        ran = served[layout]["moe_experts"]
+        log(f"[serve] moe_experts ran {ran} times in {steps} decode steps "
+            f"and {chunks} prefill chunks of {n_moe} MoE layers")
+        if not steps or not chunks or ran != n_moe * (steps + chunks):
+            fail(f"moe_experts ran {ran} times for {steps} decode steps and "
+                 f"{chunks} prefill chunks of {n_moe} MoE layers on olmoe's "
+                 f"{layout} path")
         gc.collect()
         torch.cuda.empty_cache()
 
     g = torch.Generator(device="cuda").manual_seed(4)
-    for B, S in ((16, 1), (16, 256)):
+    for (B, S), masked in itertools.product(((16, 1), (16, 256)),
+                                            (False, True)):
         h = torch.randn(B, S, cfg.d_model, generator=g, device="cuda",
                         dtype=torch.bfloat16)
+        live = torch.rand(B, S, generator=g, device="cuda") < 0.5 \
+            if masked else None
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            y, aux = moe_mod.moe_mlp(cfg, model.layers[0], h)
+            y, aux = moe_mod.moe_mlp(cfg, model.layers[0], h, live=live)
         except RuntimeError as e:
             fail(f"moe_mlp synchronised with the host at {B} x {S}: {e}")
         finally:
@@ -2877,8 +3151,9 @@ def phase_serve_moe(torch):
         torch.cuda.synchronize()
         ok = bool(torch.isfinite(y).all()) and math.isfinite(float(aux))
         log(f"[moe] moe_mlp at {B} x {S} tokens (capacity "
-            f"{moe_mod.expert_capacity(cfg, B * S)} an expert): no host "
-            f"sync under set_sync_debug_mode('error'), finite {ok}")
+            f"{moe_mod.expert_capacity(cfg, B * S)} an expert, live mask "
+            f"{masked}): no host sync under set_sync_debug_mode('error'), "
+            f"finite {ok}")
         if not ok:
             fail("moe_mlp: non-finite output")
 
@@ -3439,6 +3714,7 @@ def main():
     worst["flash_attention"] = phase_check_flash(torch)
     worst["ssd_scan"] = phase_check_ssd(torch)
     worst["ssm_state_update"], ssm_update_row = phase_ssm_update(torch)
+    worst["moe_experts"], moe_row = phase_moe_experts(torch)
     phase_check_split(torch)
     rows = phase_time(torch)
     phase_reference(torch)
@@ -3471,7 +3747,7 @@ def main():
     phase_serve_whisper(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_serve_moe(torch)
+    moe_served = phase_serve_moe(torch)
     gc.collect()
     torch.cuda.empty_cache()
     phase_prefix(torch)
@@ -3516,6 +3792,11 @@ def main():
         source="src/repro_torch/kernels/csrc/ssm_state_update.cu",
         replaces=None, launches=mamba2["ssm_state_update"],
         max_abs_err=worst["ssm_state_update"], **ssm_update_row))
+    kernels.append(dict(
+        name="moe_experts", route="cuda",
+        source="src/repro_torch/kernels/csrc/moe_experts.cu",
+        replaces=None, launches=moe_served["paged"]["moe_experts"],
+        max_abs_err=worst["moe_experts"], **moe_row))
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -31,4 +31,8 @@ Kernels:
   ssm_state_update             — the Mamba-2 single-token state update,
                                  in place, rows without a token skipped
                                  (SSM and hybrid decode steps)
+  moe_experts                  — the experts of a dropless MoE call over
+                                 the live tokens' entries, grouped by
+                                 expert; no weight of an expert that no
+                                 entry routes to is read (cached path)
 """

@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: every kernel source of the package (``csrc/<name>.cu``)
 SOURCES = ("paged_decode_attention", "decode_attention", "probe",
-           "flash_attention", "ssd_scan", "ssm_state_update")
+           "flash_attention", "ssd_scan", "ssm_state_update", "moe_experts")
 
 #: the ``dtype`` code every C entry takes for its floating inputs
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,7 +40,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = {"paged_decode_attention": 0, "paged_decode_attention_multi": 0,
              "decode_attention": 0, "decode_attention_int8": 0,
              "probe_update": 0, "flash_attention": 0, "ssd_scan": 0,
-             "ssm_state_update": 0}
+             "ssm_state_update": 0, "moe_experts": 0}
 
 
 def _build_dir() -> Path:

@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_experts as _moe
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import probe as _probe
 from repro_torch.kernels import ssd_scan as _ssd
@@ -132,3 +133,22 @@ def ssm_state_update(state, x, dt, A, Bm, Cm, D, keep):
         return ref.ssm_state_update_ref(state, x, dt, A, Bm, Cm, D, keep)
     with detail("kernel.ssm_state_update"):
         return _ssm_upd.ssm_state_update(state, x, dt, A, Bm, Cm, D, keep)
+
+
+def moe_experts(hf, w_gate, w_up, w_down, entry, offsets, weight, k):
+    """The experts of a dropless MoE call over their routed entries.
+    hf: (T,d); w_gate/w_up: (E,d,ff), w_down: (E,ff,d); entry: (T*k,)
+    int32, the entries token * k + j sorted by expert; offsets: (E+1,)
+    int32, each expert's first sorted position (offsets[E] the live
+    entries); weight: (T*k,) float32 router weights -> (T*k, d) float32,
+    each live entry's weighted expert output on its row (other rows: 0 in
+    the plain version, not written by the kernel)."""
+    if hf.device.type == "meta":
+        return hf.new_empty((entry.shape[0], hf.shape[1]),
+                            dtype=torch.float32)
+    if hf.device.type == "cpu":
+        return ref.moe_experts_ref(hf, w_gate, w_up, w_down, entry, offsets,
+                                   weight, k)
+    with detail("kernel.moe_experts"):
+        return _moe.moe_experts(hf, w_gate, w_up, w_down, entry, offsets,
+                                weight, k)

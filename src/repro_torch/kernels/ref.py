@@ -228,3 +228,32 @@ def ssm_state_update_ref(state, x, dt, A, Bm, Cm, D, keep):
     y = torch.einsum("bhpn,bn->bhp", new, Cm) + D[None, :, None] * x
     state.copy_(torch.where(keep[:, None, None, None], new, state))
     return torch.where(keep[:, None, None], y, 0.0)
+
+
+def moe_experts_ref(hf, w_gate, w_up, w_down, entry, offsets, weight,
+                    k: int):
+    """Each expert's gated-SiLU MLP over the entries routed to it, as the
+    grouped kernel computes it (``csrc/moe_experts.cu``): products in
+    float32 on the activation dtype's values, the activation
+    silu(g) * u rounded once to that dtype, the down product scaled by
+    the entry's router weight.
+
+    hf: (T,d); w_gate/w_up: (E,d,ff); w_down: (E,ff,d); entry: (T*k,) int,
+    the entries token * k + j sorted by expert; offsets: (E+1,) int, expert
+    e's entries at sorted positions offsets[e] .. offsets[e+1] - 1 (the
+    first offsets[E] are live); weight: (T*k,) float32, token-major.
+    Returns (T*k, d) float32, 0 on the rows of entries that are not live.
+    Reads the offsets on the host: a plain version, not for a graph."""
+    T, d = hf.shape
+    out = torch.zeros((T * k, d), dtype=torch.float32, device=hf.device)
+    bounds = offsets.tolist()
+    for e in range(w_gate.shape[0]):
+        if bounds[e] == bounds[e + 1]:
+            continue
+        q = entry[bounds[e]:bounds[e + 1]].long()
+        x = hf[q // k].float()
+        g = x @ w_gate[e].float()
+        act = (torch.nn.functional.silu(g) * (x @ w_up[e].float())).to(
+            hf.dtype)
+        out[q] = (act.float() @ w_down[e].float()) * weight[q, None]
+    return out

@@ -53,7 +53,7 @@ DETAILED = ("model.decode_step", "model.embed", "model.attention",
             "kernel.paged_decode_attention_multi", "kernel.decode_attention",
             "kernel.decode_attention_int8", "kernel.probe_update",
             "kernel.flash_attention", "kernel.ssd_scan",
-            "kernel.ssm_state_update")
+            "kernel.ssm_state_update", "kernel.moe_experts")
 #: every span name the program opens
 NAMES = ENGINE + DETAILED
 

@@ -245,15 +245,17 @@ def cross_weights(p):
         if hasattr(p, "cross_" + name)})
 
 
-def _mlp_part(cfg: ModelConfig, kind: str, p, h):
+def _mlp_part(cfg: ModelConfig, kind: str, p, h, live=None):
     """Post-attention feed-forward: the dense MLP, or the MoE (with the
     shared expert under ``shared_expert_ff``; plus the dense MLP on the
-    same normed input under ``moe_dense_residual``). Returns (delta, router
-    aux loss; the number 0 without MoE, so that the cached path, which
-    drops it, launches nothing for it)."""
+    same normed input under ``moe_dense_residual``). ``live`` (B,S) marks
+    the positions that hold a token (the cached path; None: all), which a
+    dropless MoE routes alone. Returns (delta, router aux loss; the number
+    0 without MoE, so that the cached path, which drops it, launches
+    nothing for it)."""
     hn = norm(cfg, p, "norm2", h)
     if kind in MOE_KINDS:
-        y, aux = moe_mod.moe_mlp(cfg, p, hn)
+        y, aux = moe_mod.moe_mlp(cfg, p, hn, live=live)
         if cfg.moe_dense_residual:
             y = y + mlp(cfg, p, hn)
         return y, aux
@@ -327,8 +329,10 @@ def block_cached(cfg: ModelConfig, kind: str, p, h, cache_l, q_pos,
     cache (``k``/``v``/``kpos``, a ring for windowed layers), and for SSM
     and hybrid layers ``ssm_state``/``conv_buf``, and for cross-attention
     layers the encoder's ``ck``/``cv`` (read only). ``decode`` (S=1) takes
-    the SSM's recurrent step instead of the chunked scan. The MoE's router
-    aux loss is dropped, as the reference's cached path drops it. Each
+    the SSM's recurrent step instead of the chunked scan. A dropless MoE
+    routes only the positions where q_pos >= 0 (a dead position's routed
+    output is 0, which no caller reads); its router aux loss is dropped,
+    as the reference's cached path drops it. Each
     residual branch is scaled by ``cfg.residual_multiplier``.
     """
     if kind not in PORTED_KINDS:
@@ -339,7 +343,8 @@ def block_cached(cfg: ModelConfig, kind: str, p, h, cache_l, q_pos,
         if kind == KIND_SSM:
             return h, cache_l
         with detail("model.mlp"):
-            return residual(cfg, h, _mlp_part(cfg, kind, p, h)[0]), cache_l
+            return residual(cfg, h, _mlp_part(cfg, kind, p, h,
+                                              q_pos >= 0)[0]), cache_l
     with detail("model.attention"):
         hn = norm(cfg, p, "norm1", h)
         if "pk" in cache_l:
@@ -356,7 +361,8 @@ def block_cached(cfg: ModelConfig, kind: str, p, h, cache_l, q_pos,
                 cfg, cross_weights(p), norm(cfg, p, "norm_cross", h),
                 cache_l["ck"], cache_l["cv"]))
     with detail("model.mlp"):
-        return residual(cfg, h, _mlp_part(cfg, kind, p, h)[0]), cache_l
+        return residual(cfg, h, _mlp_part(cfg, kind, p, h,
+                                          q_pos >= 0)[0]), cache_l
 
 
 def init_run_cache(cfg: ModelConfig, kind: str, n_layers: int, batch: int,

@@ -287,10 +287,11 @@ def without_the_new_fields(monkeypatch):
         return layers.softcap(h.float() @ table.float().T,
                               cfg.final_logit_softcap)
 
-    def moe_mlp(cfg, p, h):
-        B, S, d = h.shape
-        out, aux = moe_mod.moe_tokens(cfg, p, h.reshape(B * S, d))
-        return out.reshape(B, S, d), aux
+    moe_with_shared = moe_mod.moe_mlp
+
+    def moe_mlp(cfg, p, h, live=None):
+        return moe_with_shared(dataclasses.replace(cfg, shared_expert_ff=0),
+                               p, h, live)
 
     monkeypatch.setattr(model_mod, "embed_tokens", embed_tokens)
     monkeypatch.setattr(model_mod, "unembed", unembed)

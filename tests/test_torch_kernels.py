@@ -1602,3 +1602,97 @@ def test_cuda_ssm_state_update_replays_in_a_cuda_graph():
     assert rel_err(y.cpu(), want2.cpu()) <= 1e-5
     assert rel_err(bufs[0].cpu(), plain_state.cpu()) <= 2e-6
     assert ops.launches["ssm_state_update"] == n0 + 1
+
+
+def moe_experts_fixture(seed, T, E, k, d, ff, dead=()):
+    """Inputs of ``moe_experts`` (torch, CPU): hf (T,d), the three stacked
+    weights, the live tokens' entries grouped by expert (``moe.group`` on
+    a random routing; ``dead`` tokens hold none), the router weights."""
+    from repro_torch.models.moe import group
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) / math.sqrt(
+            shape[-2])).astype(np.float32))
+
+    top_i = torch.from_numpy(np.stack([rng.permutation(E)[:k]
+                                       for _ in range(T)]))
+    live = torch.ones(T, dtype=torch.bool)
+    live[list(dead)] = False
+    cfg = types.SimpleNamespace(num_experts=E)
+    entry, offsets = group(cfg, top_i, live)
+    weight = torch.from_numpy(rng.random(T * k).astype(np.float32))
+    return [draw(T, d), draw(E, d, ff), draw(E, d, ff), draw(E, ff, d),
+            entry, offsets, weight, k]
+
+
+def test_moe_experts_plain_runs_each_entry_through_its_expert():
+    """The plain version: each live entry q of expert e gets weight[q]
+    times e's gated-SiLU MLP of its token (the activation in the input's
+    dtype); a dead token's rows are 0; the wrapper takes it on the CPU and
+    launches nothing, and returns empty float32 rows on meta."""
+    ins = moe_experts_fixture(0, 9, 5, 2, 16, 8, dead=(3, 7))
+    hf, wg, wu, wd, entry, offsets, weight, k = ins
+    before = dict(ops.launches)
+    got = ops.moe_experts(*ins)
+    assert ops.launches == before
+    assert got.dtype == torch.float32 and got.shape == (9 * k, 16)
+    for p in range(int(offsets[-1])):
+        q = int(entry[p])
+        e = int(torch.searchsorted(offsets, p, right=True)) - 1
+        x = hf[q // k]
+        a = torch.nn.functional.silu(x @ wg[e]) * (x @ wu[e])
+        assert torch.allclose(got[q], weight[q] * (a @ wd[e]), atol=1e-6)
+    dead = torch.tensor([q // k in (3, 7) for q in range(9 * k)])
+    assert int(dead.sum()) == 2 * k and bool((got[dead] == 0).all())
+    meta = ops.moe_experts(*[t.to("meta") if isinstance(t, torch.Tensor)
+                             else t for t in ins])
+    assert meta.device.type == "meta" and meta.shape == got.shape \
+        and meta.dtype == torch.float32
+
+
+def test_moe_experts_binding_refuses_cpu_tensors():
+    """The kernel's binding never takes a CPU tensor, and raises before
+    it would build or launch anything."""
+    from repro_torch.kernels import moe_experts as kern
+    ins = moe_experts_fixture(1, 4, 3, 2, 16, 8)
+    before = dict(ops.launches)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kern.moe_experts(*ins)
+    assert ops.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k,d,ff,dead,dtype,tol", [
+    # a decode step, 6 live
+    (64, 72, 10, 256, 128, tuple(range(6, 64)), torch.bfloat16, 2e-3),
+    # tiles over 64 entries; ragged
+    (300, 5, 2, 136, 72, (0, 7, 299), torch.bfloat16, 2e-3),
+    (64, 72, 10, 256, 128, tuple(range(6, 64)), torch.float32, 1e-5),
+    # widths no multiple of 8, which only the float32 body takes
+    (300, 5, 2, 100, 36, (0, 7, 299), torch.float32, 1e-5),
+])
+def test_cuda_moe_experts_matches_plain(T, E, k, d, ff, dead, dtype, tol):
+    """On a card: the kernel against its plain version, live entries' rows
+    within ``tol`` of their largest value (in bf16 both round the
+    activation once, from float32 sums in another order, so an element can
+    land one bf16 step apart; in float32 only the order differs); the
+    experts-read tally counts the experts that some live entry routes to,
+    and E a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import moe_experts as kern
+    ins = [t.cuda() if isinstance(t, torch.Tensor) else t
+           for t in moe_experts_fixture(T + E, T, E, k, d, ff, dead)]
+    for i in range(4):
+        ins[i] = ins[i].to(dtype)
+    tally = kern.tally(ins[0].device)
+    tally.zero_()
+    got = kern.moe_experts(*ins)
+    want = tref.moe_experts_ref(*ins)
+    offsets = ins[5]
+    rows = ins[4][:int(offsets[-1])].long()
+    hit = int(((offsets[1:] - offsets[:-1]) > 0).sum())
+    assert tally.tolist() == [hit, E]
+    err = (got[rows] - want[rows]).abs().max() / want[rows].abs().max()
+    assert float(err) <= tol

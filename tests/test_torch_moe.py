@@ -182,7 +182,12 @@ def pair(arch):
 def test_prefill_and_decode_match_jax(arch, kv_layout):
     """A padded prefill chunk, a decode step and a megastep with an
     inactive row (both rows inactive and padded take capacity, as in the
-    reference): tokens equal, logits and probe outputs within 1e-4."""
+    reference): tokens equal, logits and probe outputs within 1e-4. The
+    megastep's 3 tokens a step are a dropless call (capacity 4 an
+    expert), which routes the rows that hold a token alone: its
+    posteriors are held where the row took part in the step, the only
+    ones the engine reads, since a row that takes none gets no routed
+    output, where the reference computes one it then discards."""
     cfg, jm, params, tm, _ = pair(arch)
     rng = np.random.default_rng(7)
     B, ps = 3, 8
@@ -216,7 +221,9 @@ def test_prefill_and_decode_match_jax(arch, kv_layout):
                                      torch.from_numpy(budget), k=6)
     assert np.array_equal(np.asarray(jt), tt.numpy())
     assert np.array_equal(np.asarray(je), te.numpy())
-    assert err(jp, tp) < TOL_F32
+    acted = tt.numpy() >= 0
+    assert acted.sum() == int(te.sum()) and not acted.all()
+    assert err(np.asarray(jp)[acted], tp[torch.from_numpy(acted)]) < TOL_F32
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -347,3 +354,126 @@ def test_tokens_depend_on_batch_mates_as_in_the_reference():
     (solo_logits, solo), (batch_logits, batched) = got
     assert solo != batched
     assert float(np.abs(solo_logits - batch_logits).max()) > 0.1
+
+
+#: dropless configurations (capacity_factor >= E / k): granite-4.0-h's
+#: smoke model (8 experts, top 3, a shared expert), the benchmark's olmoe
+#: smoke model (4, top 2, at 2.0) and arctic's smoke model at E / k
+DROPLESS = {"granite-4.0-h-small": None, "olmoe-1b-7b": 2.0,
+            "arctic-480b": 2.0}
+#: (B, S) and the positions that hold a token: a decode step with
+#: inactive rows, a prefill chunk with padded positions and an idle row
+LIVE_SHAPES = {"decode": ((6, 1), [[1], [0], [1], [1], [0], [1]]),
+               "prefill": ((3, 8), [[1] * 8, [1] * 5 + [0] * 3, [0] * 8])}
+
+
+def dropless_pair(arch, dtype, seed=0):
+    """(port config, weights) of a dropless MoE layer: numpy draws, the
+    router float32, the experts (and the shared expert) in ``dtype``."""
+    cfg = port_smoke_config(arch)
+    if DROPLESS[arch] is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=DROPLESS[arch])
+    rng = np.random.default_rng(seed)
+    E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) / np.sqrt(shape[-2])).to(getattr(torch, dtype))
+
+    w = Weights.__new__(Weights)
+    w.moe_router = draw(d, E).float()
+    w.moe_w_gate, w.moe_w_up, w.moe_w_down = (draw(E, d, ff), draw(E, d, ff),
+                                              draw(E, ff, d))
+    if cfg.shared_expert_ff:
+        sf = cfg.shared_expert_ff
+        w.shared_w_gate, w.shared_w_up, w.shared_w_down = (
+            draw(d, sf), draw(d, sf), draw(sf, d))
+    return cfg, w
+
+
+def live_case(cfg, shape, dtype):
+    (B, S), mask = LIVE_SHAPES[shape]
+    h = torch.from_numpy(hidden((B, S, cfg.d_model), seed=4)).to(
+        getattr(torch, dtype))
+    return h, torch.tensor(mask, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(LIVE_SHAPES))
+@pytest.mark.parametrize("arch", sorted(DROPLESS))
+def test_live_tokens_alone_equal_the_sort_dispatch_and_the_dense_oracle(
+        arch, shape, dtype):
+    """A dropless call with the live mask (the cached path): each live
+    token's output equals ``moe_mlp`` over the live tokens alone (the sort
+    dispatch) and, routed part alone, the dense oracle; a dead position's
+    routed output is exactly 0 (granite's shared expert still adds its
+    own there)."""
+    cfg, w = dropless_pair(arch, dtype)
+    h, live = live_case(cfg, shape, dtype)
+    assert tmoe.dropless(cfg, live.numel())
+    got, _ = tmoe.moe_mlp(cfg, w, h, live=live)
+    assert got.dtype == h.dtype and got.shape == h.shape
+    alone, _ = tmoe.moe_mlp(cfg, w, h[live][None])
+    tol = TOL_MODULE if dtype == "float32" else TOL_BF16
+    scale = max(1.0, float(alone.float().abs().max()))
+    assert err(got[live], alone[0]) <= tol * scale
+    routed, _ = tmoe.moe_live_tokens(cfg, w, h.reshape(-1, cfg.d_model),
+                                     live.reshape(-1))
+    routed = routed.reshape(h.shape)
+    dense, _ = tmoe.moe_mlp_dense(cfg, w, h)
+    assert err(routed[live], dense[live]) <= tol * scale
+    assert bool((routed[~live] == 0).all())
+    shared = (tmoe.shared_expert(w, h) if cfg.shared_expert_ff
+              else torch.zeros_like(h))
+    assert torch.equal(got[~live], shared[~live])
+
+
+@pytest.mark.parametrize("shape", sorted(LIVE_SHAPES))
+@pytest.mark.parametrize("arch", sorted(DROPLESS))
+def test_without_a_mask_or_where_tokens_can_drop_moe_mlp_is_unchanged(
+        arch, shape):
+    """``live=None`` (training, and any caller without a mask) and a call
+    whose capacity can drop (the reference's batch-mate rule) take the
+    sort dispatch over every position, bit for bit."""
+    cfg, w = dropless_pair(arch, "float32")
+    h, live = live_case(cfg, shape, "float32")
+    hf = h.reshape(-1, cfg.d_model)
+    routed, aux = tmoe.moe_tokens(cfg, w, hf)
+    want = routed.reshape(h.shape)
+    if cfg.shared_expert_ff:
+        want = want + tmoe.shared_expert(w, h)
+    got, gaux = tmoe.moe_mlp(cfg, w, h)
+    assert torch.equal(got, want) and torch.equal(gaux, aux)
+    tight = dataclasses.replace(cfg, capacity_factor=1.25)
+    assert not tmoe.dropless(tight, live.numel())
+    got, _ = tmoe.moe_mlp(tight, w, h, live=live)
+    assert torch.equal(got, tmoe.moe_mlp(tight, w, h)[0])
+    assert (err(got[~live], 0 * got[~live]) > 0) or not bool((~live).any())
+
+
+@pytest.mark.parametrize("arch", sorted(DROPLESS))
+def test_group_sorts_live_entries_by_expert_in_token_order(arch):
+    """``group``: the live tokens' entries sorted by expert, in token order
+    within an expert, dead tokens' entries after them; each expert's
+    offsets; the kernel's tile count within its static bound."""
+    from repro_torch.kernels import moe_experts as kmoe
+    cfg, w = dropless_pair(arch, "float32")
+    h, live = live_case(cfg, "prefill", "float32")
+    hf, lf = h.reshape(-1, cfg.d_model), live.reshape(-1)
+    _, top_i, _ = tmoe.route(cfg, w.moe_router, hf)
+    entry, offsets = tmoe.group(cfg, top_i, lf)
+    k, E = cfg.experts_per_token, cfg.num_experts
+    assert entry.dtype == offsets.dtype == torch.int32
+    want = sorted((int(top_i[q // k, q % k]), q) for q in range(hf.shape[0] * k)
+                  if lf[q // k])
+    n = int(offsets[E])
+    assert n == len(want) == int(lf.sum()) * k
+    assert entry[:n].tolist() == [q for _, q in want]
+    assert sorted(entry[n:].tolist()) == [q for q in range(hf.shape[0] * k)
+                                          if not lf[q // k]]
+    for e in range(E):
+        assert [q for x, q in want if x == e] == entry[
+            int(offsets[e]):int(offsets[e + 1])].tolist()
+    tiles = sum(-(-int(offsets[e + 1] - offsets[e]) // kmoe.TILE)
+                for e in range(E))
+    assert tiles <= kmoe.max_tiles(hf.shape[0], k, E)

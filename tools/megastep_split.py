@@ -18,7 +18,12 @@ one of them decodes. Then:
   device time of each activity goes to the innermost span open at the
   runtime call that started it (the profiler's correlation ids), summed
   by span name; ``busy_ms`` the union of those activities, ``activities``
-  their number, ``launches`` the kernel bindings' counts.
+  their number, ``launches`` the kernel bindings' counts;
+- ``experts_read``: the grouped MoE kernel's tally
+  (``metrics.counters.take_expert_reads``) over the prefill chunks that
+  took the requests in (``prefill_chunk``) and over the replayed
+  megasteps (``megastep``): the experts whose weights were read, E a
+  call, and their ratio (``share``); nothing where no call ran it.
 
 Each ``--live`` count prints one JSON line.
 """
@@ -50,9 +55,17 @@ ROOT = Path(__file__).resolve().parent.parent
 PROMPT = 44
 
 
-def _submit(run, n: int, rng) -> list:
+def _reads(counts: dict) -> dict:
+    return {**counts, "share": (counts["read"] / counts["offered"]
+                                if counts["offered"] else None)}
+
+
+def _submit(run, n: int, rng) -> dict:
+    """Submit ``n`` requests and step until each decodes; returns the
+    experts-read tally of the prefill chunks that took them in."""
+    from repro_torch.metrics import counters
     from repro_torch.serving.request import Request
-    eng = run.eng
+    eng, model = run.eng, run.model
     out = 2 * eng.ecfg.probe_interval * 64
     reqs = []
     for i in range(n):
@@ -62,9 +75,24 @@ def _submit(run, n: int, rng) -> list:
                     true_out_len=out, max_new_tokens=out)
         eng.submit(r)
         reqs.append(r)
-    while not all(len(r.generated) > eng.ecfg.probe_interval for r in reqs):
-        eng.step()
-    return reqs
+    orig = model.prefill_chunk
+    prefill = {"read": 0, "offered": 0}
+
+    def counted(*a, **k):
+        counters.take_expert_reads()
+        res = orig(*a, **k)
+        for key, v in counters.take_expert_reads().items():
+            prefill[key] += v
+        return res
+
+    model.prefill_chunk = counted
+    try:
+        while not all(len(r.generated) > eng.ecfg.probe_interval
+                      for r in reqs):
+            eng.step()
+    finally:
+        del model.prefill_chunk
+    return _reads(prefill)
 
 
 def _graph_ms(run, steps: int) -> list:
@@ -156,12 +184,17 @@ def main(argv=None) -> int:
     run = harness.Run(cell, args.seed, 51.0, False, time.perf_counter())
     run.setup()
     rng = random.Random(f"{args.seed}:split")
+    from repro_torch.metrics import counters
     for live in args.live:
-        _submit(run, live, rng)
+        prefill = _submit(run, live, rng)
+        counters.take_expert_reads()
         graph = _graph_ms(run, args.steps)
+        megastep = _reads(counters.take_expert_reads())
         line = {"workload": args.workload, "seed": args.seed, "live": live,
                 "graph_ms": statistics.median(graph),
                 "graph_ms_all": graph, **_split(run),
+                "experts_read": {"prefill_chunk": prefill,
+                                 "megastep": megastep},
                 "device": torch.cuda.get_device_name(0)}
         print(json.dumps(line), flush=True)
         run.new_engine()
